@@ -1,0 +1,39 @@
+"""mpc_iris_tpu_torch — the plaintext match path of ``mpc_iris_tpu`` on PyTorch
+and CUDA (NVIDIA Hopper, sm_90a).
+
+The JAX package ``mpc_iris_tpu`` is the reference; this package mirrors its
+layout and names so each function has an obvious counterpart:
+
+- ``ops``     encode, rotations, exact fraction selection, int8 dots, and the
+              two hand-written CUDA kernels: ``ops.select.select_chunk``
+              (counterpart of ``ops/select_pallas.py``) and
+              ``ops.packed_match.match_packed_small_b``; ``ops._build``
+              compiles ``csrc/*.cu`` with nvcc and loads them via ctypes
+- ``models``  ``PlaintextEngine`` over a packed or dense template DB
+
+It imports ``torch`` and never ``jax``. The JAX package's JAX-free modules
+(``constants``, ``types``) are imported, not copied.
+"""
+
+from mpc_iris_tpu.constants import (
+    BITS,
+    BITS_BYTES,
+    COLS,
+    MAX_ROTATION,
+    N_ROTATIONS,
+    ROTATIONS,
+    ROWS,
+)
+from mpc_iris_tpu.types import Bits, Template
+
+__all__ = [
+    "BITS",
+    "BITS_BYTES",
+    "COLS",
+    "MAX_ROTATION",
+    "N_ROTATIONS",
+    "ROTATIONS",
+    "ROWS",
+    "Bits",
+    "Template",
+]

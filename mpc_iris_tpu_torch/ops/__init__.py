@@ -1,0 +1,69 @@
+"""Tensor ops and the hand-written CUDA kernels of the plaintext match path
+(counterpart of ``mpc_iris_tpu/ops``).
+
+- ``encode``, ``rotations``: query preparation (uint8 / int8 tensors)
+- ``decode``: exact fraction selection in int32, and the host f64 decode
+- ``dot``: int8 products (``torch._int_mm``)
+- ``select``: kernel ``select_chunk`` (csrc/select_chunk.cu) and its plain version
+- ``scan``: query planes, per-chunk unpack and the chunk scan; with the plain
+  selection it is the plain packed match
+- ``packed_match``: kernel ``match_packed_small_b`` (csrc/packed_match.cu)
+  and its plain version
+- ``self_test``: the runtime canary of the int8 product and both kernels
+- ``_build``: compiles csrc/*.cu with nvcc and loads it with ctypes
+
+A kernel wrapper launches its kernel for CUDA tensors and takes the plain
+version only for CPU tensors. Nothing here builds or imports a kernel at import.
+"""
+
+from mpc_iris_tpu_torch.ops.decode import (
+    decode_distance_batch_np,
+    fraction_argmin,
+    fraction_min_rotations,
+    fraction_to_f64,
+    numerators,
+    running_min,
+)
+from mpc_iris_tpu_torch.ops.dot import dot_bits_batch
+from mpc_iris_tpu_torch.ops.encode import encode_grid_i8, pack_bits, unpack_bits
+from mpc_iris_tpu_torch.ops.packed_match import (
+    match_packed_small_b,
+    match_packed_small_b_reference,
+    small_b_ok,
+)
+from mpc_iris_tpu_torch.ops.rotations import (
+    expand_rotations,
+    expand_rotations_flat,
+    rotate_grid,
+)
+from mpc_iris_tpu_torch.ops.scan import prepare_query_planes
+from mpc_iris_tpu_torch.ops.select import (
+    fold_candidates,
+    select_chunk,
+    select_chunk_reference,
+)
+from mpc_iris_tpu_torch.ops.self_test import kernel_self_test
+
+__all__ = [
+    "decode_distance_batch_np",
+    "dot_bits_batch",
+    "encode_grid_i8",
+    "expand_rotations",
+    "expand_rotations_flat",
+    "fold_candidates",
+    "fraction_argmin",
+    "fraction_min_rotations",
+    "fraction_to_f64",
+    "kernel_self_test",
+    "match_packed_small_b",
+    "match_packed_small_b_reference",
+    "numerators",
+    "pack_bits",
+    "prepare_query_planes",
+    "rotate_grid",
+    "running_min",
+    "select_chunk",
+    "select_chunk_reference",
+    "small_b_ok",
+    "unpack_bits",
+]

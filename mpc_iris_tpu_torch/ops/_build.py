@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels.
+
+All of ``mpc_iris_tpu_torch/csrc/*.cu`` is compiled with nvcc for sm_90a into
+one shared library with a plain C interface, loaded with ``ctypes``. The build
+runs at first use, into ``mpc_iris_tpu_torch/build/`` (ignored by git), under a
+file name keyed by a hash of the sources and flags, so an edited source is
+never served by a stale library. A failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+# Every exported C function: (argtypes, restype). Pointers and the stream are
+# c_void_p so ctypes never truncates them to 32-bit ints.
+_SIGNATURES = {
+    "select_chunk_parts": ([ctypes.c_int], ctypes.c_int),
+    "select_chunk_launch": (
+        [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+        ctypes.c_int),
+    "match_packed_small_b_parts": ([ctypes.c_longlong], ctypes.c_int),
+    "match_packed_small_b_launch": (
+        [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P],
+        ctypes.c_int),
+}
+
+
+@dataclass(frozen=True)
+class Build:
+    path: Path
+    seconds: float  # 0.0 when an existing library for these sources was reused
+    log: str        # nvcc / ptxas output (registers, shared memory, spills)
+
+
+_lock = threading.Lock()
+_built: Build | None = None
+_lib: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME); cannot build "
+                           "the kernels in " + str(CSRC))
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build() -> Build:
+    """Compile the kernels (or reuse the library already built from the same
+    sources) and return where it is."""
+    global _built
+    with _lock:
+        if _built is None:
+            _built = _compile()
+        return _built
+
+
+def _compile() -> Build:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    out = BUILD_DIR / f"libmpc_iris_kernels_{h.hexdigest()[:16]}.so"
+    if out.exists():
+        return Build(out, 0.0, "")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return Build(out, seconds, log)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    b = build()
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(b.path))
+            for name, (argtypes, restype) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            _lib = lib
+        return _lib
+
+
+def check_launch(name: str, code: int) -> None:
+    """Raise if a C launch function returned a nonzero ``cudaGetLastError``."""
+    if code != 0:
+        import torch
+
+        raise RuntimeError(f"{name}: kernel launch failed: "
+                           f"{torch.cuda.CudaError(code)}")

@@ -1,0 +1,144 @@
+"""Small-batch match directly over the bit-packed DB
+(counterpart of ``mpc_iris_tpu/ops/packed_match.py``).
+
+:func:`match_packed_small_b` launches the CUDA kernel
+``csrc/packed_match.cu`` for CUDA tensors and takes
+:func:`match_packed_small_b_reference`, its plain version, for CPU tensors.
+The kernel never unpacks the DB: it computes the integer pair of the
+reference from popcounts over the packed words (see the kernel source).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mpc_iris_tpu.constants import BITS, BITS_BYTES, N_ROTATIONS
+from mpc_iris_tpu_torch.ops._build import check_launch, library
+from mpc_iris_tpu_torch.ops.encode import pack_bits
+from mpc_iris_tpu_torch.ops.scan import _match_scan_packed, prepare_query_planes
+from mpc_iris_tpu_torch.ops.select import N_ROT_PAD
+
+# Dispatch boundary of the packed small-batch kernel. It keeps the reference's
+# 1..8 so both packages route the same batches; the reference's value is a TPU
+# compiler limit, so the H100 boundary is to be re-decided from measurements
+# of this kernel against the scan path (ops/select.py) in a later change.
+SMALL_B_MAX = 8
+
+
+def small_b_ok(b: int) -> bool:
+    """True when the packed small-batch kernel takes a batch of ``b``."""
+    return 1 <= b <= SMALL_B_MAX
+
+
+def match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk) -> torch.Tensor:
+    """Plain version of :func:`match_packed_small_b`: the packed scan with
+    the plain selection (per chunk unpack and encode the DB, two int8
+    products, the exact chunk selection, and a running min over chunks)."""
+    return _match_scan_packed(q_enc, q_mask, db_pat, db_msk, fused=False)
+
+
+def _query_words(q_enc: torch.Tensor, q_mask: torch.Tensor):
+    """int8 [B, 31, K] ring-encoded query planes -> (pattern, mask) bit-planes
+    as uint8 [B, 32, 1600] (= little-endian uint32 [B, 32, 400]); row 31 is
+    the dummy, all zero. The pattern bit is set where the encoding is -1."""
+    b = q_enc.shape[0]
+    pad = q_enc.new_zeros((b, N_ROT_PAD - N_ROTATIONS, BITS))
+    pat = pack_bits(torch.cat([q_enc < 0, pad.bool()], dim=1))
+    msk = pack_bits(torch.cat([q_mask != 0, pad.bool()], dim=1))
+    return pat.contiguous(), msk.contiguous()
+
+
+def match_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
+                         db_pat: torch.Tensor, db_msk: torch.Tensor) -> torch.Tensor:
+    """Small-batch match over a bit-packed DB, one kernel per call.
+
+    Args:
+      q_enc, q_mask: int8 [B, 31, K] prepared query planes
+        (``engines.prepare_query_planes``): q_enc is the ring encoding under
+        q_mask ({-1, 0, 1}, nonzero exactly where q_mask is 1).
+      db_pat, db_msk: uint8 [C, c, 1600] packed chunks; padded entries must
+        be all zero (mask 0 -> den 0 -> never a valid distance).
+
+    Returns int32 [3, B]: (numerator, denominator, global DB index) of each
+    query's exact rational argmin over the whole DB, ties to the earliest
+    rotation and then the lowest index.
+    """
+    b = q_enc.shape[0]
+    if (q_enc.shape != (b, N_ROTATIONS, BITS) or q_mask.shape != q_enc.shape
+            or q_enc.dtype != torch.int8 or q_mask.dtype != torch.int8):
+        raise ValueError("match_packed_small_b: q_enc/q_mask must be int8 "
+                         f"[B, {N_ROTATIONS}, {BITS}]")
+    if (db_pat.dim() != 3 or db_pat.shape[2] != BITS_BYTES
+            or db_msk.shape != db_pat.shape
+            or db_pat.dtype != torch.uint8 or db_msk.dtype != torch.uint8):
+        raise ValueError("match_packed_small_b: db planes must be uint8 "
+                         f"[C, c, {BITS_BYTES}] of one shape")
+    if len({t.device for t in (q_enc, q_mask, db_pat, db_msk)}) != 1:
+        raise ValueError("match_packed_small_b: tensors on different devices")
+    if q_enc.device.type == "cpu":
+        return match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk)
+    if q_enc.device.type != "cuda":
+        raise ValueError(f"match_packed_small_b: unsupported device {q_enc.device}")
+    if not (db_pat.is_contiguous() and db_msk.is_contiguous()):
+        raise ValueError("match_packed_small_b: db planes must be contiguous")
+    if db_pat.data_ptr() % 4 or db_msk.data_ptr() % 4:
+        raise ValueError("match_packed_small_b: db planes must be 4-byte aligned")
+    n_entries = db_pat.shape[0] * db_pat.shape[1]
+    if not (1 <= b and 1 <= n_entries < 2**31):
+        raise ValueError(f"match_packed_small_b: unsupported B={b} N={n_entries}")
+    qp, qm = _query_words(q_enc, q_mask)
+    lib = library()
+    part = torch.empty(3 * b * lib.match_packed_small_b_parts(n_entries),
+                       dtype=torch.int32, device=q_enc.device)
+    out = torch.empty((3, b), dtype=torch.int32, device=q_enc.device)
+    with torch.cuda.device(q_enc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch("match_packed_small_b", lib.match_packed_small_b_launch(
+            qp.data_ptr(), qm.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(),
+            n_entries, b, part.data_ptr(), out.data_ptr(), stream))
+    match_packed_small_b.launches += 1
+    return out
+
+
+match_packed_small_b.launches = 0
+
+
+def planted_packed_case(rng: np.random.Generator, n: int = 700, b: int = 3):
+    """Packed DB uint8 [n, 1600] x2 and query planes [b, 1600] x2, with
+    planted traps: sparse masks past row 257 (den of a few bits, so equal
+    fractions as different pairs across rotations are common), exact
+    duplicates at rows congruent mod 128 (129 and 257) that are query 0's
+    exact self-match, an all-invalid entry (7), and a query sharing no valid
+    bit with the DB (2)."""
+    pat = rng.integers(0, 256, size=(n, BITS_BYTES), dtype=np.uint8)
+    msk = rng.integers(0, 256, size=(n, BITS_BYTES), dtype=np.uint8)
+    sparse = np.zeros((n, BITS), dtype=np.uint8)
+    rows = rng.integers(258, n, size=n // 2)
+    sparse[rows[:, None], rng.integers(0, BITS, size=(rows.size, 6))] = 1
+    msk[rows] = np.packbits(sparse[rows], axis=1, bitorder="little")
+    pat[257], msk[257] = pat[129], msk[129]
+    msk[7] = 0
+    qpat = pat[rng.integers(0, n, size=b)].copy()
+    qmsk = msk[rng.integers(0, n, size=b)].copy()
+    qpat[0], qmsk[0] = pat[129], msk[129]
+    if b > 2:
+        qmsk[2] = 0
+    return pat, msk, qpat, qmsk
+
+
+def check_match_packed_small_b(device) -> None:
+    """Kernel canary: the CUDA kernel equals its plain version, bit for bit,
+    on planted ties, a ragged tile edge and a padded tail chunk."""
+    rng = np.random.default_rng(0xB17)
+    pat, msk, qpat, qmsk = planted_packed_case(rng)  # 700 entries
+    q_enc, q_mask = prepare_query_planes(torch.from_numpy(qpat).to(device),
+                                         torch.from_numpy(qmsk).to(device))
+    # 3 chunks of 304, the last padded with all-zero entries
+    db_pat, db_msk = (torch.from_numpy(np.pad(x, ((0, 3 * 304 - 700), (0, 0))))
+                      .reshape(3, 304, BITS_BYTES).to(device) for x in (pat, msk))
+    got = match_packed_small_b(q_enc, q_mask, db_pat, db_msk).cpu()
+    want = match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk).cpu()
+    if not torch.equal(got, want) or int(got[2, 0]) != 129:
+        raise RuntimeError(f"match_packed_small_b kernel self-test FAILED on "
+                           f"{device}: {got.tolist()} != {want.tolist()}")
