@@ -1,15 +1,18 @@
-"""Tensor ops and the hand-written CUDA kernels of the plaintext match path
-(counterpart of ``mpc_iris_tpu/ops``).
+"""Tensor ops and the hand-written CUDA kernels of the plaintext match and
+audit paths (counterpart of ``mpc_iris_tpu/ops``).
 
 - ``encode``, ``rotations``: query preparation (uint8 / int8 tensors)
-- ``decode``: exact fraction selection in int32, and the host f64 decode
+- ``decode``: exact fraction selection in int32, the host f64 decode and
+  the exact threshold compare
 - ``dot``: int8 products (``torch._int_mm``)
 - ``select``: kernel ``select_chunk`` (csrc/select_chunk.cu) and its plain version
-- ``scan``: query planes, per-chunk unpack and the chunk scan; with the plain
-  selection it is the plain packed match
-- ``packed_match``: kernel ``match_packed_small_b`` (csrc/packed_match.cu)
-  and its plain version
-- ``self_test``: the runtime canary of the int8 product and both kernels
+- ``scan``: query planes, per-chunk unpack, the chunk scan and the fraction
+  spectrum scans; with the plain selection the packed scan is the plain
+  packed match, and the packed spectrum scan the plain packed spectrum
+- ``packed_match``: kernels ``match_packed_small_b`` (csrc/packed_match.cu)
+  and ``fractions_packed_small_b`` (csrc/packed_fractions.cu) and their
+  plain versions
+- ``self_test``: the runtime canary of the int8 product and every kernel
 - ``_build``: compiles csrc/*.cu with nvcc and loads it with ctypes
 
 A kernel wrapper launches its kernel for CUDA tensors and takes the plain
@@ -21,12 +24,16 @@ from mpc_iris_tpu_torch.ops.decode import (
     fraction_argmin,
     fraction_min_rotations,
     fraction_to_f64,
+    fractions_to_f64_np,
     numerators,
     running_min,
+    under_threshold_mask_np,
 )
 from mpc_iris_tpu_torch.ops.dot import dot_bits_batch
 from mpc_iris_tpu_torch.ops.encode import encode_grid_i8, pack_bits, unpack_bits
 from mpc_iris_tpu_torch.ops.packed_match import (
+    fractions_packed_small_b,
+    fractions_packed_small_b_reference,
     match_packed_small_b,
     match_packed_small_b_reference,
     small_b_ok,
@@ -54,6 +61,9 @@ __all__ = [
     "fraction_argmin",
     "fraction_min_rotations",
     "fraction_to_f64",
+    "fractions_packed_small_b",
+    "fractions_packed_small_b_reference",
+    "fractions_to_f64_np",
     "kernel_self_test",
     "match_packed_small_b",
     "match_packed_small_b_reference",
@@ -65,5 +75,6 @@ __all__ = [
     "select_chunk",
     "select_chunk_reference",
     "small_b_ok",
+    "under_threshold_mask_np",
     "unpack_bits",
 ]

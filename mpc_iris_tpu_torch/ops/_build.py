@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All of ``mpc_iris_tpu_torch/csrc/*.cu`` is compiled with nvcc for sm_90a into
+All of ``mpc_iris_tpu_torch/csrc/*.cu`` (with the ``*.cuh`` headers they
+include) is compiled with nvcc for sm_90a into
 one shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use, into ``mpc_iris_tpu_torch/build/`` (ignored by git), under a
 file name keyed by a hash of the sources and flags, so an edited source is
@@ -37,6 +38,9 @@ _SIGNATURES = {
     "match_packed_small_b_parts": ([ctypes.c_longlong], ctypes.c_int),
     "match_packed_small_b_launch": (
         [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P],
+        ctypes.c_int),
+    "fractions_packed_small_b_launch": (
+        [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P],
         ctypes.c_int),
 }
 

@@ -8,7 +8,8 @@ which makes every selection here a lexicographic minimum over
 (fraction, index): its result does not depend on the reduction order.
 
 These functions are also the plain versions the CUDA selection kernels are
-held against (ops/select.py, ops/packed_match.py).
+held against (ops/select.py, ops/packed_match.py). The host half at the end
+(f64 decode, the exact threshold compare of the audit) is numpy.
 """
 
 from __future__ import annotations
@@ -149,3 +150,53 @@ def fraction_to_f64(n: int, d: int) -> float:
     if d == 0:
         return float("inf")
     return float(np.float64(int(n)) / np.float64(int(d)))
+
+
+def fractions_to_f64_np(nums, dens) -> np.ndarray:
+    """Host f64 of (numerator, denominator) pairs, correctly rounded per
+    element; d == 0 is +inf.
+
+    Copy of ``mpc_iris_tpu.ops.decode.fractions_to_f64_np``."""
+    n = np.asarray(nums, dtype=np.int64)
+    d = np.asarray(dens, dtype=np.int64)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        vals = n.astype(np.float64) / d.astype(np.float64)
+    return np.where(d == 0, np.inf, vals)
+
+
+def under_threshold_mask_np(nums, dens, threshold: float) -> np.ndarray:
+    """Exact boolean mask of ``n/d < threshold`` per element; d == 0 never
+    matches.
+
+    Copy of ``mpc_iris_tpu.ops.decode.under_threshold_mask_np``: the finite
+    f64 ``threshold`` is the exact binary rational it represents. The
+    correctly-rounded f64 quotient decides every element whose quotient
+    differs from the threshold; an element whose quotient equals it is
+    settled by exact integer cross-products (int64 where both fit, Python
+    integers over object arrays where they would overflow), so a distance
+    exactly on the threshold is excluded (strict ``<``).
+    """
+    n = np.asarray(nums, dtype=np.int64)
+    d = np.asarray(dens, dtype=np.int64)
+    t = float(threshold)
+    valid = d > 0
+    if np.isnan(t) or t <= 0.0:
+        return np.zeros(n.shape, dtype=bool)
+    if np.isinf(t):
+        return valid
+    with np.errstate(invalid="ignore", divide="ignore"):
+        vals = n.astype(np.float64) / d.astype(np.float64)
+    definite = valid & (vals < t)
+    ambiguous = valid & (vals == t)
+    if ambiguous.any():
+        tn, td = t.as_integer_ratio()
+        na = n[ambiguous]
+        da = d[ambiguous]
+        nmax = int(abs(na).max(initial=0))
+        dmax = int(da.max(initial=0))
+        if tn * dmax < 2**63 and td * max(nmax, 1) < 2**63:
+            res = na * np.int64(td) < np.int64(tn) * da
+        else:
+            res = (na.astype(object) * td < tn * da.astype(object)).astype(bool)
+        definite[ambiguous] = res
+    return definite

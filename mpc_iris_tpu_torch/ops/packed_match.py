@@ -1,11 +1,13 @@
-"""Small-batch match directly over the bit-packed DB
+"""Small-batch match and audit spectrum directly over the bit-packed DB
 (counterpart of ``mpc_iris_tpu/ops/packed_match.py``).
 
 :func:`match_packed_small_b` launches the CUDA kernel
-``csrc/packed_match.cu`` for CUDA tensors and takes
-:func:`match_packed_small_b_reference`, its plain version, for CPU tensors.
-The kernel never unpacks the DB: it computes the integer pair of the
-reference from popcounts over the packed words (see the kernel source).
+``csrc/packed_match.cu`` and :func:`fractions_packed_small_b` the kernel
+``csrc/packed_fractions.cu`` for CUDA tensors; for CPU tensors each takes its
+plain version (``*_reference``), a packed scan of ops/scan.py. The kernels
+never unpack the DB: they compute the integer pairs of the reference from
+popcounts over the packed words, in one shared device function
+(``csrc/packed_tile.cuh``).
 """
 
 from __future__ import annotations
@@ -16,7 +18,11 @@ import torch
 from mpc_iris_tpu.constants import BITS, BITS_BYTES, N_ROTATIONS
 from mpc_iris_tpu_torch.ops._build import check_launch, library
 from mpc_iris_tpu_torch.ops.encode import pack_bits
-from mpc_iris_tpu_torch.ops.scan import _match_scan_packed, prepare_query_planes
+from mpc_iris_tpu_torch.ops.scan import (
+    _fractions_scan_packed,
+    _match_scan_packed,
+    prepare_query_planes,
+)
 from mpc_iris_tpu_torch.ops.select import N_ROT_PAD
 
 # Dispatch boundary of the packed small-batch kernel. It keeps the reference's
@@ -49,6 +55,36 @@ def _query_words(q_enc: torch.Tensor, q_mask: torch.Tensor):
     return pat.contiguous(), msk.contiguous()
 
 
+def _launch_args(name: str, q_enc, q_mask, db_pat, db_msk):
+    """The argument checks of both packed small-batch kernels. Returns None
+    for CPU tensors (the caller takes its plain version), else the kernel
+    library, the query bit-planes (:func:`_query_words`) and the DB entry
+    count; raises on anything the kernels do not take."""
+    b = q_enc.shape[0]
+    if (q_enc.shape != (b, N_ROTATIONS, BITS) or q_mask.shape != q_enc.shape
+            or q_enc.dtype != torch.int8 or q_mask.dtype != torch.int8):
+        raise ValueError(f"{name}: q_enc/q_mask must be int8 [B, {N_ROTATIONS}, {BITS}]")
+    if (db_pat.dim() != 3 or db_pat.shape[2] != BITS_BYTES
+            or db_msk.shape != db_pat.shape
+            or db_pat.dtype != torch.uint8 or db_msk.dtype != torch.uint8):
+        raise ValueError(f"{name}: db planes must be uint8 [C, c, {BITS_BYTES}] of one shape")
+    if len({t.device for t in (q_enc, q_mask, db_pat, db_msk)}) != 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    if q_enc.device.type == "cpu":
+        return None
+    if q_enc.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q_enc.device}")
+    if not (db_pat.is_contiguous() and db_msk.is_contiguous()):
+        raise ValueError(f"{name}: db planes must be contiguous")
+    if db_pat.data_ptr() % 4 or db_msk.data_ptr() % 4:
+        raise ValueError(f"{name}: db planes must be 4-byte aligned")
+    n_entries = db_pat.shape[0] * db_pat.shape[1]
+    # the grid is one block per (64-entry tile, query)
+    if not (1 <= b and 1 <= n_entries < 2**31 and -(-n_entries // 64) * b < 2**31):
+        raise ValueError(f"{name}: unsupported B={b} N={n_entries}")
+    return library(), *_query_words(q_enc, q_mask), n_entries
+
+
 def match_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
                          db_pat: torch.Tensor, db_msk: torch.Tensor) -> torch.Tensor:
     """Small-batch match over a bit-packed DB, one kernel per call.
@@ -64,31 +100,11 @@ def match_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     query's exact rational argmin over the whole DB, ties to the earliest
     rotation and then the lowest index.
     """
-    b = q_enc.shape[0]
-    if (q_enc.shape != (b, N_ROTATIONS, BITS) or q_mask.shape != q_enc.shape
-            or q_enc.dtype != torch.int8 or q_mask.dtype != torch.int8):
-        raise ValueError("match_packed_small_b: q_enc/q_mask must be int8 "
-                         f"[B, {N_ROTATIONS}, {BITS}]")
-    if (db_pat.dim() != 3 or db_pat.shape[2] != BITS_BYTES
-            or db_msk.shape != db_pat.shape
-            or db_pat.dtype != torch.uint8 or db_msk.dtype != torch.uint8):
-        raise ValueError("match_packed_small_b: db planes must be uint8 "
-                         f"[C, c, {BITS_BYTES}] of one shape")
-    if len({t.device for t in (q_enc, q_mask, db_pat, db_msk)}) != 1:
-        raise ValueError("match_packed_small_b: tensors on different devices")
-    if q_enc.device.type == "cpu":
+    launch = _launch_args("match_packed_small_b", q_enc, q_mask, db_pat, db_msk)
+    if launch is None:
         return match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk)
-    if q_enc.device.type != "cuda":
-        raise ValueError(f"match_packed_small_b: unsupported device {q_enc.device}")
-    if not (db_pat.is_contiguous() and db_msk.is_contiguous()):
-        raise ValueError("match_packed_small_b: db planes must be contiguous")
-    if db_pat.data_ptr() % 4 or db_msk.data_ptr() % 4:
-        raise ValueError("match_packed_small_b: db planes must be 4-byte aligned")
-    n_entries = db_pat.shape[0] * db_pat.shape[1]
-    if not (1 <= b and 1 <= n_entries < 2**31):
-        raise ValueError(f"match_packed_small_b: unsupported B={b} N={n_entries}")
-    qp, qm = _query_words(q_enc, q_mask)
-    lib = library()
+    lib, qp, qm, n_entries = launch
+    b = q_enc.shape[0]
     part = torch.empty(3 * b * lib.match_packed_small_b_parts(n_entries),
                        dtype=torch.int32, device=q_enc.device)
     out = torch.empty((3, b), dtype=torch.int32, device=q_enc.device)
@@ -127,18 +143,75 @@ def planted_packed_case(rng: np.random.Generator, n: int = 700, b: int = 3):
     return pat, msk, qpat, qmsk
 
 
+def fractions_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk) -> torch.Tensor:
+    """Plain version of :func:`fractions_packed_small_b`: the packed
+    spectrum scan (per chunk unpack and encode the DB, two int8 products,
+    the exact rotation min)."""
+    return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk)
+
+
+def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
+                             db_pat: torch.Tensor, db_msk: torch.Tensor) -> torch.Tensor:
+    """Small-batch audit spectrum over a bit-packed DB, one kernel per call.
+
+    Arguments as for :func:`match_packed_small_b`. Returns int16
+    [2, B, C*c]: per (query, entry) the min-over-31-rotations exact
+    (numerator, denominator), the earliest rotation's pair on equal
+    fractions; padded entries report (0, 0). The values are the reference's
+    uint16 spectrum (all at most 12,800); callers trim to the true count.
+    """
+    launch = _launch_args("fractions_packed_small_b", q_enc, q_mask, db_pat, db_msk)
+    if launch is None:
+        return fractions_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk)
+    lib, qp, qm, n_entries = launch
+    b = q_enc.shape[0]
+    out = torch.empty((2, b, n_entries), dtype=torch.int16, device=q_enc.device)
+    with torch.cuda.device(q_enc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        check_launch("fractions_packed_small_b", lib.fractions_packed_small_b_launch(
+            qp.data_ptr(), qm.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(),
+            n_entries, b, out.data_ptr(), stream))
+    fractions_packed_small_b.launches += 1
+    return out
+
+
+fractions_packed_small_b.launches = 0
+
+
+def _canary_inputs(device, pat, msk, qpat, qmsk):
+    """The canaries' tensors: query planes, and the 700-entry DB as 3 chunks
+    of 304, the last padded with all-zero entries (a ragged 64-entry tile
+    edge)."""
+    q_enc, q_mask = prepare_query_planes(torch.from_numpy(qpat).to(device),
+                                         torch.from_numpy(qmsk).to(device))
+    db_pat, db_msk = (torch.from_numpy(np.pad(x, ((0, 3 * 304 - 700), (0, 0))))
+                      .reshape(3, 304, BITS_BYTES).to(device) for x in (pat, msk))
+    return q_enc, q_mask, db_pat, db_msk
+
+
 def check_match_packed_small_b(device) -> None:
     """Kernel canary: the CUDA kernel equals its plain version, bit for bit,
     on planted ties, a ragged tile edge and a padded tail chunk."""
     rng = np.random.default_rng(0xB17)
     pat, msk, qpat, qmsk = planted_packed_case(rng)  # 700 entries
-    q_enc, q_mask = prepare_query_planes(torch.from_numpy(qpat).to(device),
-                                         torch.from_numpy(qmsk).to(device))
-    # 3 chunks of 304, the last padded with all-zero entries
-    db_pat, db_msk = (torch.from_numpy(np.pad(x, ((0, 3 * 304 - 700), (0, 0))))
-                      .reshape(3, 304, BITS_BYTES).to(device) for x in (pat, msk))
+    q_enc, q_mask, db_pat, db_msk = _canary_inputs(device, pat, msk, qpat, qmsk)
     got = match_packed_small_b(q_enc, q_mask, db_pat, db_msk).cpu()
     want = match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk).cpu()
     if not torch.equal(got, want) or int(got[2, 0]) != 129:
         raise RuntimeError(f"match_packed_small_b kernel self-test FAILED on "
                            f"{device}: {got.tolist()} != {want.tolist()}")
+
+
+def check_fractions_packed_small_b(device) -> None:
+    """Kernel canary: the audit-spectrum kernel equals its plain version,
+    bit for bit, on the same planted traps; the self-match at 129 and its
+    duplicate at 257 report (0, d), the all-invalid entry 7 and the padded
+    tail (0, 0)."""
+    rng = np.random.default_rng(0xF4AC)
+    pat, msk, qpat, qmsk = planted_packed_case(rng)  # 700 entries
+    args = _canary_inputs(device, pat, msk, qpat, qmsk)
+    got = fractions_packed_small_b(*args).cpu()
+    want = fractions_packed_small_b_reference(*args).cpu()
+    if (not torch.equal(got, want) or got[0, 0, 129] != 0 or got[0, 0, 257] != 0
+            or got[1, :, 7].any() or got[:, :, 700:].any()):
+        raise RuntimeError(f"fractions_packed_small_b kernel self-test FAILED on {device}")

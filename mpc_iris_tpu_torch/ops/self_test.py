@@ -1,4 +1,4 @@
-"""Runtime canary of the match path (counterpart of
+"""Runtime canary of the plaintext match and audit paths (counterpart of
 ``mpc_iris_tpu/ops/dot.py::kernel_self_test``, plaintext dots only, plus one
 check per hand-written kernel)."""
 
@@ -9,7 +9,10 @@ import torch
 
 from mpc_iris_tpu.constants import BITS
 from mpc_iris_tpu_torch.ops.dot import dot_bits_batch
-from mpc_iris_tpu_torch.ops.packed_match import check_match_packed_small_b
+from mpc_iris_tpu_torch.ops.packed_match import (
+    check_fractions_packed_small_b,
+    check_match_packed_small_b,
+)
 from mpc_iris_tpu_torch.ops.select import check_select_chunk
 
 _self_tested: set[str] = set()
@@ -38,4 +41,5 @@ def kernel_self_test(device) -> None:
     if device.type == "cuda":
         check_select_chunk(device)
         check_match_packed_small_b(device)
+        check_fractions_packed_small_b(device)
     _self_tested.add(str(device))

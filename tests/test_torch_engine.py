@@ -93,12 +93,19 @@ def test_import_leaves_jax_out():
 
 def test_cpu_tensors_never_launch(world):
     pat, msk, qpat, qmsk = world
-    before = (tsel.select_chunk.launches, tpm.match_packed_small_b.launches)
+
+    def counts():
+        return (tsel.select_chunk.launches, tpm.match_packed_small_b.launches,
+                tpm.fractions_packed_small_b.launches)
+
+    before = counts()
     for storage in ("packed", "dense"):
         eng = PlaintextEngine(pat[:300], msk[:300], device="cpu", storage=storage)
         for b in (1, 13):
             eng.match(qpat[:b], qmsk[:b])
-    assert (tsel.select_chunk.launches, tpm.match_packed_small_b.launches) == before
+            eng.min_fractions(qpat[:b], qmsk[:b])
+            eng.find_under(qpat[:b], qmsk[:b], 0.4, compact_k=16)
+    assert counts() == before
 
 
 def test_engine_needs_explicit_device(world):
