@@ -18,6 +18,27 @@ once on one NVIDIA GPU, at full size, and check them.
   spectrum's; and one threshold with about 1,000 entries under it, past a
   256-entry compact buffer, equal to the full path, with a ``limit`` that
   must raise;
+- drives a keyed MPC party at 1,048,576 entries (the reference's ``bench.py
+  --mode share-keyed`` default): a ``KeyedShareEngine`` that keeps nothing
+  resident, so every chunk regenerates through the ChaCha20 kernel
+  share_planes_kernel; its ``fold_pass_fn`` checksum at B = 1 and 8 must
+  equal the uint32 sum of the same engine's ``dots``. Beside it the kernel
+  against its plain version bit for bit (a whole chunk, the three u64
+  nonce-carry positions, stream id 0xFFFFFFFE, a high-bit key) and the
+  RFC 8439 section 2.3.2 block from the kernel itself;
+- serves one 3-party MPC query at 262,144 entries (``bench.py --mode share``'s
+  default) on the dense DB's templates: parties 0 and 1 keyed (half their
+  chunks resident, the rest regenerated per query), party 2 a
+  ``ShareEngine`` over the data-carrying share that ``share_split_device``
+  makes on the card, the coordinator a ``MasksEngine``; B = 8 queries, every
+  party's ``stream(entry_major=True)``, then the coordinator's batched
+  decode steps on the card. The winners must equal ``PlaintextEngine.match``
+  on the same DB, the planted self-matches come back at 0.0 and the
+  duplicate at its lower index, and the per-entry spectrum must equal
+  ``PlaintextEngine.min_fractions``; party 2 again under the default budget
+  policy with only part of it resident, the rest streamed host -> card
+  through the prefetch worker, equal to the resident party before and after
+  a ``refresh``;
 - counts the kernel launches of each path's run, and times each request and
   each kernel beside its plain version, labelled with the card's name and
   limit.
@@ -32,7 +53,9 @@ when any build, launch or check fails.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -40,17 +63,25 @@ import time
 import numpy as np
 import torch
 
-from mpc_iris_tpu_torch import BITS_BYTES, Bits, Template
+from mpc_iris_tpu_torch import BITS, BITS_BYTES, Bits, Template
 from mpc_iris_tpu_torch.models.engines import (
+    DEFAULT_CHUNK,
     AuditLimitExceeded,
+    KeyedShareEngine,
+    MasksEngine,
     PlaintextEngine,
+    ShareEngine,
     _compact_under_device,
     _match_scan,
+    _queries_to_natural_k,
+    _share_dots_chunk,
     find_under_from_fractions,
 )
 from mpc_iris_tpu_torch.ops import _build
+from mpc_iris_tpu_torch.ops.chacha import key_tensor, share_planes_kernel, share_planes_natural
 from mpc_iris_tpu_torch.ops.decode import fractions_to_f64_np, under_threshold_mask_np
-from mpc_iris_tpu_torch.ops.dot import dot_bits_batch
+from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, planes_to_shares
+from mpc_iris_tpu_torch.ops.encode import share_split_device
 from mpc_iris_tpu_torch.ops.packed_match import (
     fractions_packed_small_b,
     fractions_packed_small_b_reference,
@@ -65,6 +96,10 @@ from mpc_iris_tpu_torch.ops.scan import (
     prepare_query_planes,
 )
 from mpc_iris_tpu_torch.ops.select import select_chunk, select_chunk_reference
+from mpc_iris_tpu_torch.protocol.coordinator import (
+    _sum_decode_argmin_device_batch,
+    _sum_decode_minfrac_device_batch,
+)
 
 # DB sizes: the packed and dense defaults of the reference's bench.py
 PACKED_DB = 1_048_576
@@ -75,6 +110,20 @@ N_PLANTED = 8
 AUDIT_THRESHOLD = 0.375
 OVERFLOW_RANK = 1000
 OVERFLOW_K = 256
+# the MPC phases: the keyed party's DB (the reference bench.py share-keyed
+# default), the share key (high bits set), and the RFC 8439 section 2.3.2
+# block as (stream id, row, block 1's 64 bytes)
+KEYED_DB = 1_048_576
+# equals mpc_iris_tpu.native.derive_insecure_key(12345), the seed-derived test key
+SHARE_KEY = hashlib.sha256(b"mpc-iris-tpu/insecure-seed/v1"
+                           + (12345).to_bytes(8, "little")).digest()
+RFC_ROW = (0x09000000, 0x4a000000, bytes.fromhex(
+    "10f1e7e4d13b5915500fdd1fa32071c4c7d1f4c733c068030422aa9ac3d46c4e"
+    "d2826446079faa0914c2d705d98b02a2b5129cd1de164eb9cbd083e8a2503c4e"))
+# the out-of-core data party's device budget at batch_hint 8: below its
+# 6.7 GB of planes, so the streamed chunk's transients are reserved first,
+# and about half its planes after them
+OOC_BUDGET = 6 * 2**30
 
 
 def check(ok: bool, what: str) -> None:
@@ -159,6 +208,150 @@ def overflow_threshold(nd: np.ndarray):
     raise RuntimeError("no overflow threshold found")
 
 
+def check_share_planes_kernel(dev: torch.device, chunk: int) -> int:
+    """Kernel (d) against its plain version, bit for bit: a whole chunk, the
+    three u64 nonce-carry positions at stream id 0xFFFFFFFE, and the RFC 8439
+    block from the kernel. Returns the largest absolute difference (0)."""
+    kw = key_tensor(SHARE_KEY, dev)
+    err = 0
+    for sid, row0, n in ((0, 0, chunk), (0xFFFFFFFE, 0xFFFFFF80, 128),
+                         (0xFFFFFFFE, 0xFFFFFFC0, 128), (0xFFFFFFFE, 0xFFFFFFF0, 128)):
+        got = share_planes_kernel(kw, sid, row0, n)
+        want = share_planes_natural(kw, sid, row0, n)
+        e = max(int((g.int() - w.int()).abs().max()) for g, w in zip(got, want))
+        check(e == 0, f"share_planes_kernel sid={sid:#x} row0={row0:#x} n={n}: "
+              "kernel equals plain version")
+        err = max(err, e)
+    sid, row, block1 = RFC_ROW
+    u16 = planes_to_shares(*share_planes_kernel(key_tensor(bytes(range(32)), dev),
+                                                sid, row, 1))[0].cpu().numpy()
+    words = [int(u16[w * 400 + 1]) | int(u16[6400 + w * 400 + 1]) << 16 for w in range(16)]
+    check(np.array(words, "<u4").tobytes() == block1,
+          "share_planes_kernel: RFC 8439 2.3.2 block from the kernel")
+    print(f"kernel share_planes_kernel: equals the plain version on a {chunk}-row "
+          "chunk and at the three carry positions (stream id 0xFFFFFFFE, high-bit "
+          "key); RFC 8439 2.3.2 block 1 from the kernel")
+    return err
+
+
+def keyed_phase(dev: torch.device, qpat, qmsk, n: int, card: str) -> int:
+    """A keyed party with nothing resident: every chunk regenerates through
+    kernel (d). Returns the kernel's launches in the counted pass (B = 1)."""
+    t0 = time.perf_counter()
+    keyed = KeyedShareEngine(SHARE_KEY, 0, n, device=dev, hbm_budget=0)
+    torch.cuda.synchronize()
+    print(f"keyed party: {n} entries, chunk {keyed.chunk}, {keyed.resident_entries} "
+          f"resident, built in {time.perf_counter() - t0:.2f} s")
+    q1 = planes(qpat[:1], qmsk[:1], dev)[0]
+    share_planes_kernel.launches = 0
+    checksum = keyed.fold_pass_fn()(q1)
+    launches = share_planes_kernel.launches
+    print(f"launches in the keyed pass: {json.dumps({'share_planes_kernel': launches})}")
+    check(launches == keyed.num_chunks(), "every keyed chunk regenerated through the kernel")
+    for bb in (1, 8):
+        q = planes(qpat[:bb], qmsk[:bb], dev)[0]
+        got = int(keyed.fold_pass_fn()(q))
+        want = int(keyed.dots(qpat[:bb], qmsk[:bb]).sum(dtype=np.uint64)) & 0xFFFFFFFF
+        check(got == want, f"keyed fold pass B={bb}: checksum equals the sum of dots")
+        check(bb > 1 or got == int(checksum), "keyed fold pass: the counted pass agrees")
+        ms = wall_ms(lambda: keyed.fold_pass_fn()(q), 3)
+        print(f"keyed fold pass N={n} B={bb}: checksum {got:#010x} equals the uint32 sum "
+              f"of dots; {ms:.3f} ms (median of 3, host wall) [{card}]")
+    # where the pass's time goes: one chunk's kernel, plain version and products
+    kw = key_tensor(SHARE_KEY, dev)
+    c = keyed.chunk
+    lo, hi = share_planes_kernel(kw, 0, 0, c)
+    for bb in (1, 8):
+        q_nat = _queries_to_natural_k(planes(qpat[:bb], qmsk[:bb], dev)[0])
+        m_ms = cuda_ms(lambda: _share_dots_chunk(q_nat, lo, hi), 10)
+        print(f"time share products + reply block, one {c}-entry chunk B={bb}: {m_ms:.4f} ms "
+              f"(CUDA events) [{card}]")
+    return launches
+
+
+def mpc_phase(dev: torch.device, pat, msk, planted, dup, qpat, qmsk, card: str) -> int:
+    """One 3-party MPC query (B = 8) on the card. Returns kernel (d)'s
+    launches in the counted query."""
+    n = pat.shape[0]
+    t0 = time.perf_counter()
+    data_share = share_split_device(pat, msk, 3, SHARE_KEY, device=dev, shares=[2])[0]
+    torch.cuda.synchronize()
+    split_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    half = 2 * BITS * DEFAULT_CHUNK * (-(-n // DEFAULT_CHUNK) // 2)
+    parties = [KeyedShareEngine(SHARE_KEY, 0, n, device=dev, hbm_budget=half),
+               KeyedShareEngine(SHARE_KEY, 1, n, device=dev, hbm_budget=half),
+               ShareEngine(data_share, device=dev)]
+    masks = MasksEngine(msk, device=dev)
+    plain = PlaintextEngine(pat, msk, device=dev, storage="packed")
+    torch.cuda.synchronize()
+    print(f"mpc: {n} entries; data share split on the card in {split_s:.2f} s "
+          f"({data_share.nbytes / 2**30:.2f} GiB to the host); parties resident "
+          f"{[p.resident_entries for p in parties]}, masks {masks.storage}; engines "
+          f"built in {time.perf_counter() - t0:.2f} s; device memory "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+
+    def to_card(stream):
+        # the coordinator's side: each received chunk to the card as it comes
+        # (the streams' host blocks are pinned), joined there
+        return torch.cat([torch.from_numpy(b.view(np.int16)).to(dev) for b in stream])
+
+    def query(qp, qm):
+        shares = tuple(to_card(p.stream(qp, qm, entry_major=True)) for p in parties)
+        den = to_card(masks.stream(qm, entry_major=True))
+        return (_sum_decode_argmin_device_batch(shares, den).cpu(),
+                _sum_decode_minfrac_device_batch(shares, den).cpu())
+
+    bb = N_PLANTED
+    share_planes_kernel.launches = 0
+    win, nd = query(qpat[:bb], qmsk[:bb])
+    launches = share_planes_kernel.launches
+    print(f"launches in the MPC query: {json.dumps({'share_planes_kernel': launches})}")
+    check(launches > 0, "the keyed parties' tails regenerated through the kernel")
+    want = triples(plain.match(qpat[:bb], qmsk[:bb]))
+    check(torch.equal(win, want), "mpc: winners equal PlaintextEngine.match")
+    check(win[2].tolist() == list(planted[:bb]) and not win[0].any(),
+          "mpc: planted self-matches at distance 0.0, the duplicate at its lower index")
+    spectrum = plain.min_fractions(qpat[:bb], qmsk[:bb]).astype(np.int64)
+    check(np.array_equal(nd.numpy().transpose(0, 2, 1), spectrum),
+          "mpc: per-entry spectrum equals PlaintextEngine.min_fractions")
+    ms = wall_ms(lambda: query(qpat[:bb], qmsk[:bb]), 3)
+    print(f"mpc query N={n} B={bb}: winners equal PlaintextEngine.match, planted at 0.0, "
+          f"duplicate {planted[0]}/{dup} -> {int(win[2, 0])}; spectrum equals "
+          f"min_fractions; {ms:.3f} ms (median of 3, host wall; the three parties "
+          f"and the coordinator one after another in one process) [{card}]")
+    for i, p in enumerate(parties):
+        p_ms = wall_ms(lambda: list(p.stream(qpat[:bb], qmsk[:bb], entry_major=True)), 3)
+        print(f"  party {i} ({type(p).__name__}, {p.resident_entries} resident) stream: "
+              f"{p_ms:.3f} ms [{card}]")
+    m_ms = wall_ms(lambda: list(masks.stream(qmsk[:bb], entry_major=True)), 3)
+    print(f"  masks stream: {m_ms:.3f} ms [{card}]")
+
+    # party 2 again under the default budget policy, cut so that only part
+    # of it is resident: the tail streams host -> card through the prefetch
+    # worker, before and after a refresh, equal to the resident party
+    prev = os.environ.get("MPC_IRIS_HBM_BUDGET")
+    os.environ["MPC_IRIS_HBM_BUDGET"] = str(OOC_BUDGET)
+    try:
+        ooc = ShareEngine(data_share, device=dev, batch_hint=bb)
+    finally:
+        os.environ.pop("MPC_IRIS_HBM_BUDGET")
+        if prev is not None:
+            os.environ["MPC_IRIS_HBM_BUDGET"] = prev
+    check(0 < ooc.resident_entries < n, "out-of-core party: part resident, part streamed")
+    want = to_card(parties[2].stream(qpat[:bb], qmsk[:bb], entry_major=True))
+    for when in ("before", "after"):
+        got = to_card(ooc.stream(qpat[:bb], qmsk[:bb], entry_major=True))
+        check(torch.equal(got, want), f"out-of-core party {when} refresh: stream equals "
+              "the resident party's")
+        ooc.refresh(data_share)
+    o_ms = wall_ms(lambda: list(ooc.stream(qpat[:bb], qmsk[:bb], entry_major=True)), 3)
+    print(f"  party 2 out of core ({ooc.resident_entries} of {n} resident, budget "
+          f"{OOC_BUDGET / 2**30:.0f} GiB, default policy, prefetch on): stream equals the "
+          f"resident party's before and after a refresh; {o_ms:.3f} ms [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -184,7 +377,8 @@ def main() -> int:
     for line in b.log.splitlines():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("select_part_kernel", "packed_part_kernel",
-                                       "packed_fractions_kernel", "fold_parts_kernel")
+                                       "packed_fractions_kernel", "fold_parts_kernel",
+                                       "chacha_planes_kernel")
                                if k in line), line)
         elif "Used" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}")
@@ -412,6 +606,22 @@ def main() -> int:
                     "source": "mpc_iris_tpu_torch/csrc/packed_fractions.cu",
                     "replaces": "mpc_iris_tpu/ops/packed_match.py:227",
                     "launches": launches["fractions_packed_small_b"], "max_abs_err": err,
+                    "ms": k_ms, "plain_ms": p_ms})
+
+    # (d) the ChaCha20 share planes: the keyed party, then the MPC query
+    err = check_share_planes_kernel(dev, packed.chunk)
+    launches["share_planes_kernel"] = keyed_phase(dev, qpat, qmsk, KEYED_DB, card)
+    launches["share_planes_kernel"] += mpc_phase(dev, dpat, dmsk, dplanted, ddup,
+                                                 dqpat, dqmsk, card)
+    kw = key_tensor(SHARE_KEY, dev)
+    k_ms = cuda_ms(lambda: share_planes_kernel(kw, 0, 0, packed.chunk), 20)
+    p_ms = cuda_ms(lambda: share_planes_natural(kw, 0, 0, packed.chunk), 2)
+    print(f"time kernel share_planes_kernel [{packed.chunk}, {BITS}] x2 int8: "
+          f"{k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]")
+    kernels.append({"name": "share_planes_kernel", "route": "cuda",
+                    "source": "mpc_iris_tpu_torch/csrc/chacha_planes.cu",
+                    "replaces": "mpc_iris_tpu/ops/chacha.py:211",
+                    "launches": launches["share_planes_kernel"], "max_abs_err": err,
                     "ms": k_ms, "plain_ms": p_ms})
 
     check("jax" not in sys.modules, "no jax imported")

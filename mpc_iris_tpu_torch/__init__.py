@@ -1,18 +1,24 @@
-"""mpc_iris_tpu_torch — the plaintext match and threshold-audit paths of
-``mpc_iris_tpu`` on PyTorch and CUDA (NVIDIA Hopper, sm_90a).
+"""mpc_iris_tpu_torch — the plaintext match, threshold-audit and MPC
+participant paths of ``mpc_iris_tpu`` on PyTorch and CUDA (NVIDIA Hopper,
+sm_90a).
 
 The JAX package ``mpc_iris_tpu`` is the reference; this package mirrors its
 layout and names so each function has an obvious counterpart:
 
-- ``ops``     encode, rotations, exact fraction selection, int8 dots, the
-              fraction spectrum scans, the exact threshold compare, and the
-              three hand-written CUDA kernels: ``ops.select.select_chunk``
-              (counterpart of ``ops/select_pallas.py``),
-              ``ops.packed_match.match_packed_small_b`` and
-              ``ops.packed_match.fractions_packed_small_b``; ``ops._build``
-              compiles ``csrc/*.cu`` with nvcc and loads them via ctypes
-- ``models``  ``PlaintextEngine`` over a packed or dense template DB:
-              ``match``, ``distances``, ``min_fractions``, ``find_under``
+- ``ops``       encode, rotations, exact fraction selection, int8 and share
+                dots, the fraction spectrum scans, the exact threshold
+                compare, ChaCha20 share regeneration, and the four
+                hand-written CUDA kernels: ``ops.select.select_chunk``
+                (counterpart of ``ops/select_pallas.py``),
+                ``ops.packed_match.match_packed_small_b``,
+                ``ops.packed_match.fractions_packed_small_b`` and
+                ``ops.chacha.share_planes_kernel``; ``ops._build`` compiles
+                ``csrc/*.cu`` with nvcc and loads them via ctypes
+- ``models``    ``PlaintextEngine`` over a packed or dense template DB
+                (``match``, ``distances``, ``min_fractions``,
+                ``find_under``); the MPC engines ``ShareEngine``,
+                ``KeyedShareEngine`` and ``MasksEngine``
+- ``protocol``  the coordinator's share-sum-and-decode steps
 
 It imports ``torch`` and never ``jax``. The JAX package's JAX-free modules
 (``constants``, ``types``) are imported, not copied.

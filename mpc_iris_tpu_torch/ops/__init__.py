@@ -1,10 +1,13 @@
-"""Tensor ops and the hand-written CUDA kernels of the plaintext match and
-audit paths (counterpart of ``mpc_iris_tpu/ops``).
+"""Tensor ops and the hand-written CUDA kernels of the plaintext match,
+audit and MPC paths (counterpart of ``mpc_iris_tpu/ops``).
 
-- ``encode``, ``rotations``: query preparation (uint8 / int8 tensors)
+- ``encode``, ``rotations``: query preparation (uint8 / int8 tensors), the
+  u16 ring encoding and the device share split
 - ``decode``: exact fraction selection in int32, the host f64 decode and
   the exact threshold compare
-- ``dot``: int8 products (``torch._int_mm``)
+- ``dot``: int8 products (``torch._int_mm``) and the exact mod-2^16 share dots
+- ``chacha``: ChaCha20 share-stream regeneration, kernel
+  ``share_planes_kernel`` (csrc/chacha_planes.cu) and its plain version
 - ``select``: kernel ``select_chunk`` (csrc/select_chunk.cu) and its plain version
 - ``scan``: query planes, per-chunk unpack, the chunk scan and the fraction
   spectrum scans; with the plain selection the packed scan is the plain
@@ -12,7 +15,8 @@ audit paths (counterpart of ``mpc_iris_tpu/ops``).
 - ``packed_match``: kernels ``match_packed_small_b`` (csrc/packed_match.cu)
   and ``fractions_packed_small_b`` (csrc/packed_fractions.cu) and their
   plain versions
-- ``self_test``: the runtime canary of the int8 product and every kernel
+- ``self_test``: the runtime canary of the int8 product, the share dot and
+  every kernel
 - ``_build``: compiles csrc/*.cu with nvcc and loads it with ctypes
 
 A kernel wrapper launches its kernel for CUDA tensors and takes the plain
@@ -29,8 +33,15 @@ from mpc_iris_tpu_torch.ops.decode import (
     running_min,
     under_threshold_mask_np,
 )
-from mpc_iris_tpu_torch.ops.dot import dot_bits_batch
-from mpc_iris_tpu_torch.ops.encode import encode_grid_i8, pack_bits, unpack_bits
+from mpc_iris_tpu_torch.ops.chacha import share_planes_kernel, share_planes_natural
+from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, dot_share_batch
+from mpc_iris_tpu_torch.ops.encode import (
+    encode_grid_i8,
+    encode_grid_u16,
+    pack_bits,
+    share_split_device,
+    unpack_bits,
+)
 from mpc_iris_tpu_torch.ops.packed_match import (
     fractions_packed_small_b,
     fractions_packed_small_b_reference,
@@ -54,7 +65,9 @@ from mpc_iris_tpu_torch.ops.self_test import kernel_self_test
 __all__ = [
     "decode_distance_batch_np",
     "dot_bits_batch",
+    "dot_share_batch",
     "encode_grid_i8",
+    "encode_grid_u16",
     "expand_rotations",
     "expand_rotations_flat",
     "fold_candidates",
@@ -74,6 +87,9 @@ __all__ = [
     "running_min",
     "select_chunk",
     "select_chunk_reference",
+    "share_planes_kernel",
+    "share_planes_natural",
+    "share_split_device",
     "small_b_ok",
     "under_threshold_mask_np",
     "unpack_bits",

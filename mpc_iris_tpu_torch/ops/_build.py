@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels.
 
 All of ``mpc_iris_tpu_torch/csrc/*.cu`` (with the ``*.cuh`` headers they
-include) is compiled with nvcc for sm_90a into
-one shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, into ``mpc_iris_tpu_torch/build/`` (ignored by git), under a
-file name keyed by a hash of the sources and flags, so an edited source is
-never served by a stale library. A failed build raises.
+include) is compiled with nvcc for sm_90a, one nvcc per source, all started
+together, and linked into one shared library with a plain C interface, loaded
+with ``ctypes``. The build runs at first use, into ``mpc_iris_tpu_torch/build/``
+(ignored by git), under a file name keyed by a hash of the sources and flags,
+so an edited source is never served by a stale library. A failed build raises.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -41,6 +41,9 @@ _SIGNATURES = {
         ctypes.c_int),
     "fractions_packed_small_b_launch": (
         [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P],
+        ctypes.c_int),
+    "chacha_planes_launch": (
+        [_P, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _P, _P, _P],
         ctypes.c_int),
 }
 
@@ -90,16 +93,32 @@ def _compile() -> Build:
         return Build(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for src, obj in zip(sources(), objs)])
+        log += _run_all([[_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]])
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
-    return Build(out, seconds, log)
+    return Build(out, time.perf_counter() - t0, log)
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; returns their joined output, or raises
+    with it if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{log}")
+    return "".join(outs)
 
 
 def library() -> ctypes.CDLL:

@@ -10,10 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from mpc_iris_tpu_torch.models import PlaintextEngine
+from mpc_iris_tpu import native
+from mpc_iris_tpu_torch.models import KeyedShareEngine, MasksEngine, PlaintextEngine, ShareEngine
 from mpc_iris_tpu_torch.models.engines import _pad_chunks, prepare_query_planes
+from mpc_iris_tpu_torch.ops import chacha as tcha
+from mpc_iris_tpu_torch.ops import dot as tdot
 from mpc_iris_tpu_torch.ops import packed_match as tpm
 from mpc_iris_tpu_torch.ops import select as tsel
+from mpc_iris_tpu_torch.ops.encode import share_split_device
+from mpc_iris_tpu_torch.protocol import coordinator as tcoord
 
 pytestmark = pytest.mark.gpu
 
@@ -114,3 +119,111 @@ def test_engine_on_card_equals_cpu(cuda, storage):
         assert got[0] == (17, 0, got[0][2])
     np.testing.assert_array_equal(card.distances(pat[:2], msk[:2]),
                                   host.distances(pat[:2], msk[:2]))
+
+
+@pytest.mark.parametrize("row0,n_rows", [(0xFFFFFF80, 128), (0xFFFFFFC0, 128),
+                                         (0xFFFFFFF0, 128), (0, 1), (12345, 300)])
+def test_share_planes_kernel(cuda, row0, n_rows):
+    """Kernel (d) against its plain version: no carry, a carry at a 64-row
+    boundary, a carry mid-launch, ragged row counts; the largest valid stream
+    id and a key with high bits set."""
+    kw = tcha.key_tensor(native.derive_insecure_key(12345), cuda)
+    before = tcha.share_planes_kernel.launches
+    got = tcha.share_planes_kernel(kw, 0xFFFFFFFE, row0, n_rows)
+    torch.cuda.synchronize()
+    assert tcha.share_planes_kernel.launches == before + 1
+    want = tcha.share_planes_natural(kw, 0xFFFFFFFE, row0, n_rows)
+    assert all(g.dtype == torch.int8 and torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(ValueError):
+        tcha.share_planes_kernel(kw.to(torch.int64), 0, 0, 1)
+    with pytest.raises(ValueError):
+        tcha.share_planes_kernel(kw, 0, 0, 0)
+
+
+def test_share_planes_kernel_rfc8439_block(cuda):
+    """RFC 8439 section 2.3.2: stream id 0x09000000, row 0x4a000000, block 1."""
+    lo, hi = tcha.share_planes_kernel(tcha.key_tensor(bytes(range(32)), cuda),
+                                      0x09000000, 0x4a000000, 1)
+    u16 = tdot.planes_to_shares(lo, hi)[0].cpu().numpy()
+    words = [int(u16[w * 400 + 1]) | int(u16[6400 + w * 400 + 1]) << 16 for w in range(16)]
+    assert np.array(words, "<u4").tobytes().hex() == (
+        "10f1e7e4d13b5915500fdd1fa32071c4c7d1f4c733c068030422aa9ac3d46c4e"
+        "d2826446079faa0914c2d705d98b02a2b5129cd1de164eb9cbd083e8a2503c4e")
+
+
+def test_share_engines_on_card_equal_cpu(cuda):
+    """ShareEngine (resident and out of core), KeyedShareEngine (head + tail,
+    fold pass), MasksEngine and the decode steps on the card against the same
+    on the CPU; share_split_device on the card against the CPU."""
+    rng = np.random.default_rng(3)
+    n = 301
+    pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    qpat, qmsk = pat[[17, 2, 250]].copy(), msk[[17, 2, 250]].copy()
+    key = native.derive_insecure_key(5)
+    shares = share_split_device(pat, msk, 3, key, device=cuda, chunk=128)
+    np.testing.assert_array_equal(
+        shares, share_split_device(pat, msk, 3, key, device="cpu", chunk=128))
+    plane_chunk = 2 * 12800 * 104
+    parties = [(KeyedShareEngine(key, 0, n, device=dev, chunk=100, hbm_budget=plane_chunk),
+                KeyedShareEngine(key, 1, n, device=dev, chunk=100, hbm_budget=0),
+                ShareEngine(shares[2], device=dev, chunk=100, hbm_budget=plane_chunk))
+               for dev in (cuda, "cpu")]
+    assert parties[0][0].chunk == 104 and parties[0][0].resident_entries == 104
+    for card, host in zip(*parties):
+        for em in (False, True):
+            np.testing.assert_array_equal(
+                np.concatenate(list(card.stream(qpat, qmsk, entry_major=em)), axis=1 - em),
+                np.concatenate(list(host.stream(qpat, qmsk, entry_major=em)), axis=1 - em))
+    masks = [MasksEngine(msk, device=dev, chunk=100, storage=st)
+             for dev in (cuda, "cpu") for st in ("dense", "packed")]
+    dens = [np.concatenate(list(m.stream(qmsk, entry_major=True))) for m in masks]
+    for d in dens[1:]:
+        np.testing.assert_array_equal(d, dens[0])
+    blocks = [np.concatenate(list(p.stream(qpat, qmsk, entry_major=True))) for p in parties[0]]
+    for dev in (cuda, torch.device("cpu")):
+        t = tuple(torch.from_numpy(b.view(np.int16)).to(dev) for b in blocks)
+        den = torch.from_numpy(dens[0].view(np.int16)).to(dev)
+        win = tcoord._sum_decode_argmin_device_batch(t, den).cpu()
+        nd = tcoord._sum_decode_minfrac_device_batch(t, den).cpu()
+        if dev.type == "cuda":
+            card_win, card_nd = win, nd
+    assert torch.equal(card_win, win) and torch.equal(card_nd, nd)
+    assert win[2].tolist() == [17, 2, 250] and win[0].tolist() == [0, 0, 0]
+    count = 3 * 104
+    for dev in (cuda, "cpu"):
+        eng = KeyedShareEngine(key, 1, count, device=dev, chunk=104, hbm_budget=plane_chunk)
+        q = prepare_query_planes(torch.from_numpy(qpat).to(dev),
+                                 torch.from_numpy(qmsk).to(dev))[0]
+        got = int(eng.fold_pass_fn()(q))
+        assert got == int(eng.dots(qpat, qmsk).astype(np.uint32).sum() & 0xFFFFFFFF)
+        assert got == int(eng.fold_pass_fn(segments=2)(q))
+        if dev == cuda:
+            card_sum = got
+    assert card_sum == got
+
+
+def test_share_engine_prefetch_on_card_equals_cpu(cuda, monkeypatch):
+    """ShareEngine under the default budget policy with nothing resident:
+    every chunk goes host -> card through the prefetch worker, and refresh
+    drops a pending prefetch of the padded tail. Equal to the CPU engine."""
+    rng = np.random.default_rng(4)
+    share = rng.integers(0, 1 << 16, (301, 12800), dtype=np.uint16)
+    grown = np.concatenate([share, share[:50] ^ np.uint16(0x5A5A)])
+    qpat = rng.integers(0, 256, (3, 1600), dtype=np.uint8)
+    qmsk = rng.integers(0, 256, (3, 1600), dtype=np.uint8)
+    monkeypatch.setenv("MPC_IRIS_HBM_BUDGET", "1")
+    card = ShareEngine(share, device=cuda, chunk=104)
+    assert card.resident_entries == 0 and card.num_chunks() == 3
+    for src in (share, grown):
+        host = ShareEngine(src, device="cpu", chunk=104, hbm_budget=0)
+        for em in (False, True):
+            np.testing.assert_array_equal(
+                np.concatenate(list(card.stream(qpat, qmsk, entry_major=em)), axis=1 - em),
+                np.concatenate(list(host.stream(qpat, qmsk, entry_major=em)), axis=1 - em))
+        q = prepare_query_planes(torch.from_numpy(qpat).to(cuda),
+                                 torch.from_numpy(qmsk).to(cuda))[0]
+        card.dots_chunk(q, 1)  # prefetches chunk 2, the padded tail
+        assert 2 in card._prefetch
+        card.refresh(grown)
+        assert not card._prefetch
