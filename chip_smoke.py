@@ -41,11 +41,19 @@ once on one NVIDIA GPU, at full size, and check them.
   a ``refresh``;
 - counts the kernel launches of each path's run, and times each request and
   each kernel beside its plain version, labelled with the card's name and
-  limit.
+  limit; the packed kernels (b) and (c) at B = 1, 8, 16, 32, 64 and 128,
+  each bit-equal to its plain version, beside the scan the engine takes past
+  the dispatch boundary, with their int8 op rate, their bound (bytes at
+  3.35 TB/s or int8 ops at 1,979 TOPS) and share of it, the query bytes
+  they read from L2, and the SM clock and power nvidia-smi samples while
+  (b) runs;
+- checks that no module of jax or of the JAX package ``mpc_iris_tpu`` was
+  imported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-kernels as JSON. Exits nonzero, printing no result, without a CUDA card or
-when any build, launch or check fails.
+card, the one before that the kernels as JSON (with each kernel's bound).
+Exits nonzero, printing no result, without a CUDA card or when any build,
+launch or check fails.
 
     python3 chip_smoke.py [--seed S]
 """
@@ -56,8 +64,10 @@ import argparse
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -83,6 +93,7 @@ from mpc_iris_tpu_torch.ops.decode import fractions_to_f64_np, under_threshold_m
 from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, planes_to_shares
 from mpc_iris_tpu_torch.ops.encode import share_split_device
 from mpc_iris_tpu_torch.ops.packed_match import (
+    _launch_plan,
     fractions_packed_small_b,
     fractions_packed_small_b_reference,
     match_packed_small_b,
@@ -100,6 +111,18 @@ from mpc_iris_tpu_torch.protocol.coordinator import (
     _sum_decode_argmin_device_batch,
     _sum_decode_minfrac_device_batch,
 )
+
+# the card's peaks (NVIDIA H100 SXM data sheet, dense): memory, int8 tensor
+# ops; and 32-bit ALU instructions on the CUDA cores (its 67 TFLOP/s float32
+# FMA peak counted per instruction)
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS = 1.979e15
+ALU_OPS = 3.35e13
+# int32 operations of one 64-byte ChaCha20 block: 20 rounds x 4 quarter
+# rounds x 12 (4 add, 4 xor, 4 rotate), and the 16 adds of the input
+CHACHA_OPS = 20 * 4 * 12 + 16
+# batches of the packed kernels' sweep, both sides of the dispatch boundary
+SWEEP = (1, 8, 16, 32, 64, 128)
 
 # DB sizes: the packed and dense defaults of the reference's bench.py
 PACKED_DB = 1_048_576
@@ -174,6 +197,65 @@ def wall_ms(fn, reps: int) -> float:
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def bound(n_bytes: int, ops: int, rate: float):
+    """The least time the card could take, ms: the larger of the bytes over
+    the memory rate and the operations over their peak rate, and which."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def packed_bound(b: int, n: int, out_bytes: int):
+    """Bound of a packed small-batch kernel, B queries over n entries: reads
+    the packed DB (3,200 bytes an entry) and the int8 query planes once; the
+    two int8 products over the 31 rotations, 2 ops a MAC."""
+    return bound(2 * BITS_BYTES * n + 2 * b * 31 * BITS + out_bytes,
+                 2 * 2 * b * 31 * BITS * n, INT8_OPS)
+
+
+def packed_rate(b: int, n: int, ms: float) -> str:
+    ops = 2 * 2 * b * 31 * BITS * n
+    return f"{ops / ms / 1e9:.0f} int8 TOPS ({ops / ms / 1e9 / (INT8_OPS / 1e12):.1%} of peak)"
+
+
+def query_l2_bytes(lib, b: int, n: int) -> int:
+    """Bytes of query slabs the packed kernels read from L2 for a batch of b:
+    every block reads its group's 400 slabs of 2 x (32 x group) x 32 bytes."""
+    total = 0
+    for _, nq, qg in _launch_plan(b):
+        n_tiles = -(-n // lib.packed_tile_entries(qg))
+        total += -(-nq // qg) * n_tiles * 400 * 2 * 32 * qg * 32
+    return total
+
+
+def clocks_under(fn, calls: int) -> str:
+    """SM clock and power draw, sampled by one-shot nvidia-smi queries from a
+    thread while ``calls`` queued calls of ``fn`` run on the card."""
+    fn()
+    torch.cuda.synchronize()
+    samples, done = [], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True).stdout.splitlines()
+            if out and out[0].count(",") == 1:
+                samples.append(tuple(float(v) for v in out[0].split(",")))
+
+    for _ in range(calls):
+        fn()
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    torch.cuda.synchronize()
+    done.set()
+    sampler.join()
+    if len(samples) < 2:  # the last sample may postdate the work
+        return "not measured (too few nvidia-smi samples)"
+    sm = [c for c, _ in samples[:-1]]
+    return (f"{len(sm)} samples, SM clock median {np.median(sm):.0f} MHz "
+            f"(min {min(sm):.0f}), power max {max(w for _, w in samples[:-1]):.1f} W")
 
 
 def planes(qp: np.ndarray, qm: np.ndarray, dev: torch.device):
@@ -376,12 +458,15 @@ def main() -> int:
     kernel = "?"
     for line in b.log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("select_part_kernel", "packed_part_kernel",
+            kernel = next((k for k in ("select_part_kernel", "packed_match_kernel",
                                        "packed_fractions_kernel", "fold_parts_kernel",
                                        "chacha_planes_kernel")
                                if k in line), line)
-        elif "Used" in line:
-            print(f"  ptxas {kernel}: {line.split(':', 1)[1].strip()}")
+            config = re.search(r"kernelILi(\d+)ELi(\d+)E", line)
+            if config:  # the packed kernels' <queries per group, M tiles>
+                kernel += f"<{config[1]}, {config[2]}>"
+        elif "Used" in line or "spill stores" in line or "C7512" in line:
+            print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -551,62 +636,81 @@ def main() -> int:
         print(f"time kernel select_chunk [{bb * 32}, {packed.chunk}] int32: {k_ms:.4f} ms, "
               f"plain {p_ms:.4f} ms [{card}]")
     err, k_ms, p_ms = a_rows[128]
+    # reads the int32 dot and den [128 * 32, chunk] once, writes 3 x 128 int32
+    bound_ms, bound_by = bound(2 * 128 * 32 * packed.chunk * 4 + 12 * 128, 0, INT8_OPS)
     kernels.append({"name": "select_chunk", "route": "cuda",
                     "source": "mpc_iris_tpu_torch/csrc/select_chunk.cu",
                     "replaces": "mpc_iris_tpu/ops/select_pallas.py:156",
                     "launches": launches["select_chunk"], "max_abs_err": err,
-                    "ms": k_ms, "plain_ms": p_ms})
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
 
-    # (b) match_packed_small_b over the whole packed DB; beside it the scan
-    # through (a), the other side of the dispatch boundary, at batches on
-    # both sides of it
+    # (b) match_packed_small_b over the whole packed DB at batches on both
+    # sides of the dispatch boundary; beside it the packed scan through (a),
+    # the path the engine takes past the boundary
+    lib = _build.library()
     b_rows = {}
-    for bb in (1, 8, 16, 24, 32):
+    for bb in SWEEP:
         args4 = (q_enc[:bb], q_mask[:bb], packed.db_pat, packed.db_msk)
         got = match_packed_small_b(*args4)
         want = match_packed_small_b_reference(*args4)
         err = int((got - want).abs().max())
         check(err == 0, f"match_packed_small_b B={bb}: kernel equals plain version")
-        k_ms = cuda_ms(lambda: match_packed_small_b(*args4), 5)
-        p_ms = cuda_ms(lambda: match_packed_small_b_reference(*args4), 2)
+        k_ms = cuda_ms(lambda: match_packed_small_b(*args4), 5 if bb <= 16 else 2)
+        p_ms = cuda_ms(lambda: match_packed_small_b_reference(*args4), 2) if bb <= 16 else None
         s_ms = cuda_ms(lambda: _match_scan_packed(*args4, fused=True), 2)
-        b_rows[bb] = (err, k_ms, p_ms)
+        bound_ms, bound_by = packed_bound(bb, packed.count, 12 * bb)
+        b_rows[bb] = (err, k_ms, p_ms, bound_ms, bound_by)
+        plain = f"plain {p_ms:.3f} ms, " if p_ms is not None else ""
         print(f"time kernel match_packed_small_b N={packed.count} B={bb}: {k_ms:.3f} ms, "
-              f"plain {p_ms:.3f} ms, packed scan through select_chunk {s_ms:.3f} ms "
-              f"[{card}]")
-    err, k_ms, p_ms = b_rows[8]
+              f"{plain}packed scan through select_chunk {s_ms:.3f} ms [{card}]")
+        print(f"  {packed_rate(bb, packed.count, k_ms)}; bound {bound_ms:.3f} ms "
+              f"({bound_by}), {bound_ms / k_ms:.1%} of it; query slabs read from L2 "
+              f"{query_l2_bytes(lib, bb, packed.count) / 1e9:.2f} GB")
+    args4 = (q_enc[:16], q_mask[:16], packed.db_pat, packed.db_msk)
+    print(f"SM clock and power with match_packed_small_b B=16 running: "
+          f"{clocks_under(lambda: match_packed_small_b(*args4), 60)} [{card}]")
+    err, k_ms, p_ms, bound_ms, bound_by = b_rows[8]
     kernels.append({"name": "match_packed_small_b", "route": "cuda",
                     "source": "mpc_iris_tpu_torch/csrc/packed_match.cu",
                     "replaces": "mpc_iris_tpu/ops/packed_match.py:114",
                     "launches": launches["match_packed_small_b"], "max_abs_err": err,
-                    "ms": k_ms, "plain_ms": p_ms})
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
 
-    # (c) fractions_packed_small_b over the whole packed DB, beside its plain
-    # version; and the compaction of its B = 8 spectrum
+    # (c) fractions_packed_small_b over the whole packed DB at the same
+    # batches, beside its plain version, the spectrum scan the engine takes
+    # past the boundary; and the compaction of its B = 8 spectrum
     c_rows = {}
-    for bb in (1, 8, 16):
+    for bb in SWEEP:
         args4 = (q_enc[:bb], q_mask[:bb], packed.db_pat, packed.db_msk)
         got = fractions_packed_small_b(*args4)
         want = fractions_packed_small_b_reference(*args4)
         err = int((got.int() - want.int()).abs().max())
+        del want
         check(err == 0, f"fractions_packed_small_b B={bb}: kernel equals plain version")
-        k_ms = cuda_ms(lambda: fractions_packed_small_b(*args4), 5)
+        k_ms = cuda_ms(lambda: fractions_packed_small_b(*args4), 5 if bb <= 16 else 2)
         p_ms = cuda_ms(lambda: fractions_packed_small_b_reference(*args4), 2)
-        c_rows[bb] = (err, k_ms, p_ms)
+        bound_ms, bound_by = packed_bound(bb, packed.count, 4 * bb * packed.count)
+        c_rows[bb] = (err, k_ms, p_ms, bound_ms, bound_by)
         print(f"time kernel fractions_packed_small_b N={packed.count} B={bb}: "
-              f"{k_ms:.3f} ms, plain {p_ms:.3f} ms [{card}]")
+              f"{k_ms:.3f} ms, plain (the spectrum scan) {p_ms:.3f} ms [{card}]")
+        print(f"  {packed_rate(bb, packed.count, k_ms)}; bound {bound_ms:.3f} ms "
+              f"({bound_by}), {bound_ms / k_ms:.1%} of it")
         if bb == 8:
             t_hi, k = np.float32(AUDIT_THRESHOLD * (1.0 + 1e-4)), 65536
             c_ms = cuda_ms(lambda: _compact_under_device(got, t_hi, k), 20)
             print(f"time compaction _compact_under_device [2, 8, {got.shape[2]}] k={k}: "
                   f"{c_ms:.3f} ms (CUDA events; includes the host sync of nonzero) "
                   f"[{card}]")
-    err, k_ms, p_ms = c_rows[8]
+        del got
+    err, k_ms, p_ms, bound_ms, bound_by = c_rows[8]
     kernels.append({"name": "fractions_packed_small_b", "route": "cuda",
                     "source": "mpc_iris_tpu_torch/csrc/packed_fractions.cu",
                     "replaces": "mpc_iris_tpu/ops/packed_match.py:227",
                     "launches": launches["fractions_packed_small_b"], "max_abs_err": err,
-                    "ms": k_ms, "plain_ms": p_ms})
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
 
     # (d) the ChaCha20 share planes: the keyed party, then the MPC query
     err = check_share_planes_kernel(dev, packed.chunk)
@@ -618,13 +722,20 @@ def main() -> int:
     p_ms = cuda_ms(lambda: share_planes_natural(kw, 0, 0, packed.chunk), 2)
     print(f"time kernel share_planes_kernel [{packed.chunk}, {BITS}] x2 int8: "
           f"{k_ms:.4f} ms, plain {p_ms:.3f} ms [{card}]")
+    # writes the int8 lo and hi planes [chunk, 12800] once; CHACHA_OPS int32
+    # ALU operations per 64-byte ChaCha20 block, 400 blocks per row
+    bound_ms, bound_by = bound(2 * packed.chunk * BITS + 32,
+                               packed.chunk * 400 * CHACHA_OPS, ALU_OPS)
     kernels.append({"name": "share_planes_kernel", "route": "cuda",
                     "source": "mpc_iris_tpu_torch/csrc/chacha_planes.cu",
                     "replaces": "mpc_iris_tpu/ops/chacha.py:211",
                     "launches": launches["share_planes_kernel"], "max_abs_err": err,
-                    "ms": k_ms, "plain_ms": p_ms})
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
 
     check("jax" not in sys.modules, "no jax imported")
+    ref = sorted(m for m in sys.modules if m == "mpc_iris_tpu" or m.startswith("mpc_iris_tpu."))
+    check(not ref, f"no module of the JAX package imported: {ref}")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

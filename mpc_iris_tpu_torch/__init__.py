@@ -20,11 +20,12 @@ layout and names so each function has an obvious counterpart:
                 ``KeyedShareEngine`` and ``MasksEngine``
 - ``protocol``  the coordinator's share-sum-and-decode steps
 
-It imports ``torch`` and never ``jax``. The JAX package's JAX-free modules
-(``constants``, ``types``) are imported, not copied.
+It imports ``torch`` and nothing of ``jax`` or of the JAX package: what it
+needs of the JAX package's JAX-free modules is copied (``constants``,
+``types``).
 """
 
-from mpc_iris_tpu.constants import (
+from mpc_iris_tpu_torch.constants import (
     BITS,
     BITS_BYTES,
     COLS,
@@ -33,7 +34,7 @@ from mpc_iris_tpu.constants import (
     ROTATIONS,
     ROWS,
 )
-from mpc_iris_tpu.types import Bits, Template
+from mpc_iris_tpu_torch.types import Bits, Template
 
 __all__ = [
     "BITS",

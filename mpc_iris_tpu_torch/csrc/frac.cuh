@@ -66,10 +66,11 @@ __device__ Frac block_select(Frac f) {
 constexpr int kFoldThreads = 256;
 
 // Second pass: per query b, the select over its n_parts block winners.
-// part: int32 [3][batch][n_parts] (n, d, idx planes); out: int32 [3][batch].
+// part: int32 [3][batch][n_parts] (n, d, idx planes); out: int32 [3] rows
+// of out_stride, query b at column b.
 static __global__ void __launch_bounds__(kFoldThreads)
 fold_parts_kernel(const int* __restrict__ part, int n_parts, int batch,
-                  int* __restrict__ out) {
+                  int* __restrict__ out, int out_stride) {
   const int b = blockIdx.x;
   const size_t plane = static_cast<size_t>(batch) * n_parts;
   const int* row = part + static_cast<size_t>(b) * n_parts;
@@ -80,8 +81,8 @@ fold_parts_kernel(const int* __restrict__ part, int n_parts, int batch,
   f = block_select<kFoldThreads>(f);
   if (threadIdx.x == 0) {
     out[b] = f.n;
-    out[batch + b] = f.d;
-    out[2 * batch + b] = f.i;
+    out[out_stride + b] = f.d;
+    out[2 * out_stride + b] = f.i;
   }
 }
 

@@ -86,6 +86,6 @@ extern "C" int select_chunk_launch(const void* dot, const void* den, int batch,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   fold_parts_kernel<<<batch, kFoldThreads, 0, s>>>(
-      static_cast<const int*>(part), n_parts, batch, static_cast<int*>(out));
+      static_cast<const int*>(part), n_parts, batch, static_cast<int*>(out), batch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -71,7 +71,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from mpc_iris_tpu.constants import BITS, N_ROTATIONS
+from mpc_iris_tpu_torch.constants import BITS, N_ROTATIONS
 from mpc_iris_tpu_torch.ops.chacha import (
     check_stream_id,
     k_permutation,
@@ -380,11 +380,11 @@ class PlaintextEngine:
     """Plaintext min-distance search over a device-resident template DB."""
 
     def __init__(self, patterns_packed: np.ndarray, masks_packed: np.ndarray, *,
-                 device, chunk: int = DEFAULT_CHUNK, storage: str = "auto"):
+                 device="cuda", chunk: int = DEFAULT_CHUNK, storage: str = "auto"):
         """Args:
         patterns_packed, masks_packed: uint8 [N, 1600] packed planes (host).
-        device: where the DB lives and the search runs; there is no default,
-          and a CUDA device without a card raises.
+        device: where the DB lives and the search runs; the card by
+          default, and a CUDA device without a card raises.
         chunk: DB entries per scan step (rounded up to a multiple of 8 on the
           card, where the int8 product needs it; the padded rows never win).
         storage: "packed" keeps the raw bit planes (3.2 KB per entry) and
@@ -705,12 +705,12 @@ class ShareEngine:
     Peak host memory is one chunk; peak extra device memory one streamed
     chunk and its planes."""
 
-    def __init__(self, shares_u16: np.ndarray, *, device, chunk: int = DEFAULT_CHUNK,
+    def __init__(self, shares_u16: np.ndarray, *, device="cuda", chunk: int = DEFAULT_CHUNK,
                  hbm_budget: int | None = None, batch_hint: int = 512):
         """shares_u16: uint16 [N, 12800] share matrix (host, e.g. np.memmap).
 
-        device: where the resident planes live and the products run; no
-        default, and a CUDA device without a card raises.
+        device: where the resident planes live and the products run; the
+        card by default, and a CUDA device without a card raises.
         batch_hint: largest query batch this engine will serve. Out of core,
         every streamed chunk adds a device transient on top of the resident
         head, so the default budget carves that headroom out of the resident
@@ -938,7 +938,7 @@ class KeyedShareEngine:
     as holding the share file.
     """
 
-    def __init__(self, key: bytes, stream_id: int, count: int, *, device,
+    def __init__(self, key: bytes, stream_id: int, count: int, *, device="cuda",
                  chunk: int = DEFAULT_CHUNK, hbm_budget: int | None = None,
                  batch_hint: int = 512):
         """hbm_budget: device bytes for a RESIDENT head of regenerated lo/hi
@@ -1079,7 +1079,7 @@ class MasksEngine:
     (mirrors ``engines.MasksEngine``; the reference's ``MasksEngine``,
     src/lib.rs:55-80)."""
 
-    def __init__(self, masks_packed: np.ndarray, *, device, chunk: int = DEFAULT_CHUNK,
+    def __init__(self, masks_packed: np.ndarray, *, device="cuda", chunk: int = DEFAULT_CHUNK,
                  storage: str = "auto"):
         """masks_packed: uint8 [N, 1600] packed mask planes (host, e.g. np.memmap).
 

@@ -35,12 +35,14 @@ _SIGNATURES = {
     "select_chunk_launch": (
         [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
         ctypes.c_int),
-    "match_packed_small_b_parts": ([ctypes.c_longlong], ctypes.c_int),
+    "packed_tile_entries": ([ctypes.c_int], ctypes.c_int),
     "match_packed_small_b_launch": (
-        [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P, _P],
+        [ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
+         ctypes.c_int, _P],
         ctypes.c_int),
     "fractions_packed_small_b_launch": (
-        [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P],
+        [ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
+         ctypes.c_longlong, _P],
         ctypes.c_int),
     "chacha_planes_launch": (
         [_P, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _P, _P, _P],

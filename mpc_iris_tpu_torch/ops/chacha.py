@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpc_iris_tpu.constants import BITS
+from mpc_iris_tpu_torch.constants import BITS
 from mpc_iris_tpu_torch.ops._build import check_launch, library
 
 _CONSTS = (0x61707865, 0x3320646E, 0x79622D32, 0x6B206574)  # "expand 32-byte k"

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpc_iris_tpu.constants import BITS
+from mpc_iris_tpu_torch.constants import BITS
 from mpc_iris_tpu_torch.ops.chacha import k_permutation, key_tensor, share_planes_kernel
 
 

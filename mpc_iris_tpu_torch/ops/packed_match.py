@@ -5,19 +5,22 @@
 ``csrc/packed_match.cu`` and :func:`fractions_packed_small_b` the kernel
 ``csrc/packed_fractions.cu`` for CUDA tensors; for CPU tensors each takes its
 plain version (``*_reference``), a packed scan of ops/scan.py. The kernels
-never unpack the DB: they compute the integer pairs of the reference from
-popcounts over the packed words, in one shared device function
-(``csrc/packed_tile.cuh``).
+never unpack the DB to memory: they run the reference's two int8 products on
+the tensor cores (wgmma), with the DB operand unpacked in registers from the
+packed words, one bit-plane per K-step of the bit-plane-major K order
+(``csrc/packed_tile.cuh``). The query is laid out once per call by
+:func:`_query_tiles` in the order the kernels read it.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
-from mpc_iris_tpu.constants import BITS, BITS_BYTES, N_ROTATIONS
+from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES, N_ROTATIONS
 from mpc_iris_tpu_torch.ops._build import check_launch, library
-from mpc_iris_tpu_torch.ops.encode import pack_bits
 from mpc_iris_tpu_torch.ops.scan import (
     _fractions_scan_packed,
     _match_scan_packed,
@@ -30,6 +33,8 @@ from mpc_iris_tpu_torch.ops.select import N_ROT_PAD
 # compiler limit, so the H100 boundary is to be re-decided from measurements
 # of this kernel against the scan path (ops/select.py) in a later change.
 SMALL_B_MAX = 8
+
+SLAB = 32  # K per tensor-core step: 32 packed bytes of one bit-plane
 
 
 def small_b_ok(b: int) -> bool:
@@ -44,22 +49,65 @@ def match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk) -> torch.Tenso
     return _match_scan_packed(q_enc, q_mask, db_pat, db_msk, fused=False)
 
 
-def _query_words(q_enc: torch.Tensor, q_mask: torch.Tensor):
-    """int8 [B, 31, K] ring-encoded query planes -> (pattern, mask) bit-planes
-    as uint8 [B, 32, 1600] (= little-endian uint32 [B, 32, 400]); row 31 is
-    the dummy, all zero. The pattern bit is set where the encoding is -1."""
+@functools.cache
+def _bitplane_perm() -> np.ndarray:
+    """K permutation natural -> bit-plane-major: position j = bit * 1600 +
+    byte holds natural index byte * 8 + bit (copy of
+    ``mpc_iris_tpu.ops.packed_match._bitplane_perm``). In this order one
+    bit-plane of the packed DB is one contiguous K slab."""
+    j = np.arange(BITS)
+    return (j % BITS_BYTES) * 8 + j // BITS_BYTES
+
+
+@functools.cache
+def _bitplane_index(device: torch.device) -> torch.Tensor:
+    """:func:`_bitplane_perm` on ``device``, uploaded once: a pageable upload
+    per call would block the host on every request."""
+    return torch.as_tensor(_bitplane_perm(), device=device)
+
+
+def _launch_plan(b: int) -> list[tuple[int, int, int]]:
+    """The kernel launches for a batch of ``b``: (first query, queries, group
+    size). Groups of 4 queries (N = 128 rotation rows); a remainder of 1 or 2
+    gets its own group size, one of 3 a group of 4 with a zero query."""
+    plan = [(0, b - b % 4, 4)] if b >= 4 else []
+    r = b % 4
+    if r:
+        plan.append((b - r, r, {1: 1, 2: 2, 3: 4}[r]))
+    return plan
+
+
+def _query_tiles(q_enc: torch.Tensor, q_mask: torch.Tensor, qg: int) -> torch.Tensor:
+    """int8 [B, 31, K] prepared query planes -> the kernels' query operand,
+    int8 [G, 50, 8, 2, N/8, 2, 8, 16] for G = ceil(B / qg) groups of N =
+    32 * qg rotation rows (row 31 of each query and the padding queries all
+    zero: mask 0, never valid).
+
+    Axes: group; the K-step (byte slab jj, bit-plane b), in the order the
+    kernel takes them; encoding, then mask; and the N x 32-byte slab of K =
+    b * 1600 + jj * 32 + (0..31) in the bit-plane-major order of
+    :func:`_bitplane_perm`, as wgmma reads it from shared memory (K-major, no
+    swizzle): 8-row groups, the two 16-byte K halves, 8 rows, 16 bytes."""
     b = q_enc.shape[0]
-    pad = q_enc.new_zeros((b, N_ROT_PAD - N_ROTATIONS, BITS))
-    pat = pack_bits(torch.cat([q_enc < 0, pad.bool()], dim=1))
-    msk = pack_bits(torch.cat([q_mask != 0, pad.bool()], dim=1))
-    return pat.contiguous(), msk.contiguous()
+    g = -(-b // qg)
+    n = 32 * qg
+    perm = _bitplane_index(q_enc.device)
+
+    def operand(q):
+        rows = q.new_zeros((g * qg, N_ROT_PAD, BITS))
+        rows[:b, :N_ROTATIONS] = q
+        x = rows.reshape(g, n, BITS)[:, :, perm]
+        x = x.reshape(g, n // 8, 8, 8, BITS_BYTES // SLAB, 2, 16)  # g, nh, nl, bit, jj, kh, kl
+        return x.permute(0, 4, 3, 1, 5, 2, 6)                     # g, jj, bit, nh, kh, nl, kl
+
+    return torch.stack([operand(q_enc), operand(q_mask)], dim=3).contiguous()
 
 
 def _launch_args(name: str, q_enc, q_mask, db_pat, db_msk):
     """The argument checks of both packed small-batch kernels. Returns None
     for CPU tensors (the caller takes its plain version), else the kernel
-    library, the query bit-planes (:func:`_query_words`) and the DB entry
-    count; raises on anything the kernels do not take."""
+    library and the DB entry count; raises on anything the kernels do not
+    take."""
     b = q_enc.shape[0]
     if (q_enc.shape != (b, N_ROTATIONS, BITS) or q_mask.shape != q_enc.shape
             or q_enc.dtype != torch.int8 or q_mask.dtype != torch.int8):
@@ -76,18 +124,19 @@ def _launch_args(name: str, q_enc, q_mask, db_pat, db_msk):
         raise ValueError(f"{name}: unsupported device {q_enc.device}")
     if not (db_pat.is_contiguous() and db_msk.is_contiguous()):
         raise ValueError(f"{name}: db planes must be contiguous")
-    if db_pat.data_ptr() % 4 or db_msk.data_ptr() % 4:
-        raise ValueError(f"{name}: db planes must be 4-byte aligned")
+    if db_pat.data_ptr() % 16 or db_msk.data_ptr() % 16:
+        raise ValueError(f"{name}: db planes must be 16-byte aligned (bulk async copies)")
     n_entries = db_pat.shape[0] * db_pat.shape[1]
-    # the grid is one block per (64-entry tile, query)
-    if not (1 <= b and 1 <= n_entries < 2**31 and -(-n_entries // 64) * b < 2**31):
+    # the grid is one block per (entry tile of >= 128, query group)
+    if not (1 <= b and 1 <= n_entries < 2**31 and -(-n_entries // 128) * b < 2**31):
         raise ValueError(f"{name}: unsupported B={b} N={n_entries}")
-    return library(), *_query_words(q_enc, q_mask), n_entries
+    return library(), n_entries
 
 
 def match_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
                          db_pat: torch.Tensor, db_msk: torch.Tensor) -> torch.Tensor:
-    """Small-batch match over a bit-packed DB, one kernel per call.
+    """Small-batch match over a bit-packed DB: one kernel launch (and its
+    fold) per query group size of :func:`_launch_plan`.
 
     Args:
       q_enc, q_mask: int8 [B, 31, K] prepared query planes
@@ -103,17 +152,19 @@ def match_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     launch = _launch_args("match_packed_small_b", q_enc, q_mask, db_pat, db_msk)
     if launch is None:
         return match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk)
-    lib, qp, qm, n_entries = launch
+    lib, n_entries = launch
     b = q_enc.shape[0]
-    part = torch.empty(3 * b * lib.match_packed_small_b_parts(n_entries),
-                       dtype=torch.int32, device=q_enc.device)
     out = torch.empty((3, b), dtype=torch.int32, device=q_enc.device)
     with torch.cuda.device(q_enc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        check_launch("match_packed_small_b", lib.match_packed_small_b_launch(
-            qp.data_ptr(), qm.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(),
-            n_entries, b, part.data_ptr(), out.data_ptr(), stream))
-    match_packed_small_b.launches += 1
+        for q0, nq, qg in _launch_plan(b):
+            qt = _query_tiles(q_enc[q0:q0 + nq], q_mask[q0:q0 + nq], qg)
+            n_tiles = -(-n_entries // lib.packed_tile_entries(qg))
+            part = torch.empty(3 * nq * n_tiles, dtype=torch.int32, device=q_enc.device)
+            check_launch("match_packed_small_b", lib.match_packed_small_b_launch(
+                qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
+                part.data_ptr(), out[:, q0:].data_ptr(), b, stream))
+            match_packed_small_b.launches += 1
     return out
 
 
@@ -152,7 +203,8 @@ def fractions_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk) -> torch.T
 
 def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
                              db_pat: torch.Tensor, db_msk: torch.Tensor) -> torch.Tensor:
-    """Small-batch audit spectrum over a bit-packed DB, one kernel per call.
+    """Small-batch audit spectrum over a bit-packed DB: one kernel launch per
+    query group size of :func:`_launch_plan`.
 
     Arguments as for :func:`match_packed_small_b`. Returns int16
     [2, B, C*c]: per (query, entry) the min-over-31-rotations exact
@@ -163,15 +215,17 @@ def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     launch = _launch_args("fractions_packed_small_b", q_enc, q_mask, db_pat, db_msk)
     if launch is None:
         return fractions_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk)
-    lib, qp, qm, n_entries = launch
+    lib, n_entries = launch
     b = q_enc.shape[0]
     out = torch.empty((2, b, n_entries), dtype=torch.int16, device=q_enc.device)
     with torch.cuda.device(q_enc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        check_launch("fractions_packed_small_b", lib.fractions_packed_small_b_launch(
-            qp.data_ptr(), qm.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(),
-            n_entries, b, out.data_ptr(), stream))
-    fractions_packed_small_b.launches += 1
+        for q0, nq, qg in _launch_plan(b):
+            qt = _query_tiles(q_enc[q0:q0 + nq], q_mask[q0:q0 + nq], qg)
+            check_launch("fractions_packed_small_b", lib.fractions_packed_small_b_launch(
+                qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
+                out[0, q0].data_ptr(), b * n_entries, stream))
+            fractions_packed_small_b.launches += 1
     return out
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from mpc_iris_tpu.constants import COLS, N_ROTATIONS, ROTATIONS, ROWS
+from mpc_iris_tpu_torch.constants import COLS, N_ROTATIONS, ROTATIONS, ROWS
 
 
 def rotate_grid(grid: torch.Tensor, amount: int) -> torch.Tensor:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from mpc_iris_tpu.constants import BITS, COLS, N_ROTATIONS, ROWS
+from mpc_iris_tpu_torch.constants import BITS, COLS, N_ROTATIONS, ROWS
 from mpc_iris_tpu_torch.ops.decode import (
     chunk_winners,
     fraction_min_rotations,

@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from mpc_iris_tpu.constants import BITS
+from mpc_iris_tpu_torch.constants import BITS
 from mpc_iris_tpu_torch.ops.chacha import check_share_planes
 from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, dot_share_batch, shares_to_planes
 from mpc_iris_tpu_torch.ops.packed_match import (

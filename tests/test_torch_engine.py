@@ -85,8 +85,13 @@ def test_golden_distances():
 
 
 def test_import_leaves_jax_out():
+    """The port imports neither jax nor any module of the JAX package."""
     code = ("import sys, mpc_iris_tpu_torch, mpc_iris_tpu_torch.models, "
-            "mpc_iris_tpu_torch.ops; assert 'jax' not in sys.modules, 'jax imported'")
+            "mpc_iris_tpu_torch.ops, mpc_iris_tpu_torch.protocol\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n"
+            "ref = sorted(m for m in sys.modules\n"
+            "             if m == 'mpc_iris_tpu' or m.startswith('mpc_iris_tpu.'))\n"
+            "assert not ref, f'JAX package modules imported: {ref}'")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=Path(__file__).resolve().parent.parent)
 
@@ -109,12 +114,21 @@ def test_cpu_tensors_never_launch(world):
 
 
 def test_engine_needs_explicit_device(world):
+    """The engines run on the card unless the caller asks for the CPU: with
+    no device given they take "cuda", which raises without a card; a bad
+    storage still raises ValueError."""
+    from mpc_iris_tpu_torch.models import KeyedShareEngine, MasksEngine, ShareEngine
+
     pat, msk, _, _ = world
-    with pytest.raises(TypeError):
-        PlaintextEngine(pat, msk)
     with pytest.raises(ValueError):
         PlaintextEngine(pat, msk, device="cpu", storage="sparse")
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the no-card error cannot be shown")
-    with pytest.raises(RuntimeError, match="no CUDA card"):
-        PlaintextEngine(pat, msk, device=torch.device("cuda"))
+    shares = np.zeros((4, 12800), dtype=np.uint16)
+    for make in (lambda: PlaintextEngine(pat, msk),
+                 lambda: ShareEngine(shares),
+                 lambda: KeyedShareEngine(bytes(32), 0, 4),
+                 lambda: MasksEngine(msk),
+                 lambda: PlaintextEngine(pat, msk, device=torch.device("cuda"))):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()

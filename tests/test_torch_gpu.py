@@ -45,37 +45,54 @@ def test_select_chunk_kernel(cuda, n_cols, offset):
         tsel.select_chunk(dot.to(torch.int16), den.to(torch.int16), offset)
 
 
-@pytest.mark.parametrize("b,chunk", [(1, 304), (3, 1000), (8, 64)])
-def test_match_packed_small_b_kernel(cuda, b, chunk):
+# Batches of every query group size of the launch plan, more than one group
+# (16, 33); entry counts (912, 1000, 704, 800) that no entry tile (128 or 256
+# entries) divides; planted_packed_case's rotation ties and duplicates at
+# rows 129 and 257 (congruent mod 128).
+PACKED_CASES = [(1, 304), (2, 1000), (3, 1000), (8, 64), (16, 200), (33, 304)]
+
+
+def _packed_case(cuda, b, chunk):
     pat, msk, qpat, qmsk = tpm.planted_packed_case(np.random.default_rng(b), b=b)
     db_pat = torch.from_numpy(_pad_chunks(pat, chunk)[0]).to(cuda)
     db_msk = torch.from_numpy(_pad_chunks(msk, chunk)[0]).to(cuda)
     q_enc, q_mask = prepare_query_planes(torch.from_numpy(qpat).to(cuda),
                                          torch.from_numpy(qmsk).to(cuda))
-    got = tpm.match_packed_small_b(q_enc, q_mask, db_pat, db_msk)
+    return q_enc, q_mask, db_pat, db_msk
+
+
+@pytest.mark.parametrize("b,chunk", PACKED_CASES)
+def test_match_packed_small_b_kernel(cuda, b, chunk):
+    args = _packed_case(cuda, b, chunk)
+    before = tpm.match_packed_small_b.launches
+    got = tpm.match_packed_small_b(*args)
     torch.cuda.synchronize()
+    assert tpm.match_packed_small_b.launches == before + len(tpm._launch_plan(b))
     # the plain version's int8 product on the card needs chunk % 8 == 0
-    want = tpm.match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk)
+    want = tpm.match_packed_small_b_reference(*args)
     assert torch.equal(got, want)
     assert int(got[2, 0]) == 129
+    if b > 2:
+        assert int(got[1, 2]) == 0 and int(got[2, 2]) == 0  # the all-invalid query
 
 
-@pytest.mark.parametrize("b,chunk", [(1, 304), (3, 1000), (8, 200)])
+@pytest.mark.parametrize("b,chunk", PACKED_CASES)
 def test_fractions_packed_small_b_kernel(cuda, b, chunk):
-    """Ragged 64-entry tiles at every chunk; the padded tail reports (0, 0)."""
-    pat, msk, qpat, qmsk = tpm.planted_packed_case(np.random.default_rng(b), b=b)
-    db_pat = torch.from_numpy(_pad_chunks(pat, chunk)[0]).to(cuda)
-    db_msk = torch.from_numpy(_pad_chunks(msk, chunk)[0]).to(cuda)
-    q_enc, q_mask = prepare_query_planes(torch.from_numpy(qpat).to(cuda),
-                                         torch.from_numpy(qmsk).to(cuda))
+    """Ragged entry tiles at every chunk; the padded tail reports (0, 0)."""
+    args = _packed_case(cuda, b, chunk)
     before = tpm.fractions_packed_small_b.launches
-    got = tpm.fractions_packed_small_b(q_enc, q_mask, db_pat, db_msk)
+    got = tpm.fractions_packed_small_b(*args)
     torch.cuda.synchronize()
-    assert tpm.fractions_packed_small_b.launches == before + 1
-    want = tpm.fractions_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk)
+    assert tpm.fractions_packed_small_b.launches == before + len(tpm._launch_plan(b))
+    want = tpm.fractions_packed_small_b_reference(*args)
     assert got.dtype == torch.int16 and torch.equal(got, want)
     assert int(got[0, 0, 129]) == 0 and int(got[0, 0, 257]) == 0
     assert not got[:, :, 700:].any()
+
+
+def test_packed_kernel_canaries(cuda):
+    tpm.check_match_packed_small_b(cuda)
+    tpm.check_fractions_packed_small_b(cuda)
 
 
 @pytest.mark.parametrize("storage", ["packed", "dense"])

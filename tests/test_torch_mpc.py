@@ -419,14 +419,14 @@ def test_cpu_keys_never_launch():
 
 
 def test_engines_need_explicit_device(share21):
+    """The MPC engines run on the card unless the caller asks for the CPU:
+    with no device given they take "cuda", which raises without a card."""
     share = share21[0]
-    with pytest.raises(TypeError):
-        ShareEngine(share)
-    with pytest.raises(TypeError):
-        MasksEngine(np.zeros((3, BITS_BYTES), np.uint8))
-    with pytest.raises(TypeError):
-        KeyedShareEngine(bytes(32), 0, 16)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the no-card error cannot be shown")
-    with pytest.raises(RuntimeError, match="no CUDA card"):
-        KeyedShareEngine(bytes(32), 0, 16, device=torch.device("cuda"))
+    for make in (lambda: ShareEngine(share),
+                 lambda: MasksEngine(np.zeros((3, BITS_BYTES), np.uint8)),
+                 lambda: KeyedShareEngine(bytes(32), 0, 16),
+                 lambda: KeyedShareEngine(bytes(32), 0, 16, device=torch.device("cuda"))):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            make()

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from mpc_iris_tpu.constants import BITS_BYTES
+from mpc_iris_tpu.ops.select_pallas import N_ROT_PAD
 from mpc_iris_tpu.models import engines as jeng
 from mpc_iris_tpu.ops import packed_match as jpm
 from mpc_iris_tpu_torch.models import engines as teng
@@ -66,37 +67,93 @@ def test_planted_traps(rng):
     assert port[1, 2] == 0 and port[2, 2] == 0
 
 
-def _kernel_arithmetic(q_enc, q_mask, db_pat, db_msk):
-    """The CUDA kernel's arithmetic, emulated with numpy popcounts over the
-    query words it is given and the packed DB words: den = popc(qm & dm),
-    num = popc((qp ^ dp) & qm & dm). Returns (num, den) int32 [B, 32, N]."""
-    qp, qm = (x.numpy().view(np.uint32) for x in tpm._query_words(q_enc, q_mask))
-    dp = db_pat.numpy().reshape(-1, BITS_BYTES).view(np.uint32)
-    dm = db_msk.numpy().reshape(-1, BITS_BYTES).view(np.uint32)
-    both = qm[:, :, None, :] & dm[None, None]
-    den = np.bitwise_count(both).sum(-1, dtype=np.int32)
-    num = np.bitwise_count((qp[:, :, None, :] ^ dp[None, None]) & both).sum(-1, dtype=np.int32)
-    return num, den
+LSB = np.uint32(0x01010101)
 
 
-def test_kernel_arithmetic_equals_reference(rng):
-    """The popcount identity the CUDA kernel rests on gives the reference's
-    integer pairs, and with its index-aware selection the same winners."""
-    pat, msk, qpat, qmsk = tpm.planted_packed_case(rng, n=300)
-    pat_c, _ = teng._pad_chunks(pat, 128)
-    msk_c, _ = teng._pad_chunks(msk, 128)
+def _fragments(db_pat, db_msk):
+    """The kernel's register-A operand, emulated from the packed uint32
+    words: for each K-step (byte slab jj, bit-plane b) and entry, the 32 int8
+    values of 8 words w: mask (w_m >> b) & 0x01010101 and encoding
+    ((w_p & w_m) >> b & 0x01010101) * 0xFE + mask. Returns (enc, mask) int8
+    [E, 50, 8, 32]: entry, jj, bit-plane, K within the step."""
+    wp = db_pat.numpy().reshape(-1, BITS_BYTES).view(np.uint32).reshape(-1, 50, 1, 8)
+    wm = db_msk.numpy().reshape(-1, BITS_BYTES).view(np.uint32).reshape(-1, 50, 1, 8)
+    shift = np.arange(8, dtype=np.uint32)[None, None, :, None]
+    am = (wm >> shift) & LSB
+    ae = ((wp & wm) >> shift & LSB) * np.uint32(0xFE) + am
+    return (x.view(np.int8).reshape(-1, 50, 8, tpm.SLAB) for x in (ae, am))
+
+
+def _kernel_arithmetic(q_enc, q_mask, db_pat, db_msk, qg):
+    """The CUDA kernels' arithmetic, emulated in numpy on the operands they
+    are given: the query slabs of ``_query_tiles`` (un-tiled from wgmma's
+    shared-memory layout) and the register fragments of :func:`_fragments`,
+    as int32 products over the 400 K-steps, then num = (den - dot) >> 1.
+    Returns (num, den) int32 [B, 32, E]."""
+    qt = tpm._query_tiles(q_enc, q_mask, qg).numpy()
+    g, n = qt.shape[0], 32 * qg
+    # g, jj, bit, o, nh, kh, nl, kl -> o, g, nh, nl, jj, bit, kh, kl = [2, G*N, K]
+    qk = qt.transpose(3, 0, 4, 6, 1, 2, 5, 7).reshape(2, g * n, -1)
+    ae, am = _fragments(db_pat, db_msk)
+    # float64 products are exact here (|sums| <= 12,800)
+    dot = (qk[0].astype(np.float64) @ ae.reshape(ae.shape[0], -1).T.astype(np.float64))
+    den = (qk[1].astype(np.float64) @ am.reshape(am.shape[0], -1).T.astype(np.float64))
+    dot, den = (x.astype(np.int32).reshape(g * qg, N_ROT_PAD, -1)[:q_enc.shape[0]]
+                for x in (dot, den))
+    return (den - dot) >> 1, den
+
+
+def test_bitplane_perm_equals_jax():
+    np.testing.assert_array_equal(tpm._bitplane_perm(), jpm._bitplane_perm())
+
+
+@pytest.mark.parametrize("bit", range(8))
+def test_fragments_equal_jax_unpack_planes(rng, bit):
+    """The register fragments of bit-plane ``bit``, over all 50 byte slabs,
+    are the JAX kernel's unpacked planes (_unpack_planes) of that bit."""
+    pat, msk, _, _ = tpm.planted_packed_case(rng, n=300)
+    ae, am = _fragments(_t(pat), _t(msk))
+    want_e, want_m = jpm._unpack_planes(jnp.asarray(pat.astype(np.int32)),
+                                        jnp.asarray(msk.astype(np.int32)), bit)
+    np.testing.assert_array_equal(ae[:, :, bit].reshape(300, BITS_BYTES), np.asarray(want_e))
+    np.testing.assert_array_equal(am[:, :, bit].reshape(300, BITS_BYTES), np.asarray(want_m))
+
+
+@pytest.mark.parametrize("n_chunks,chunk", [(3, 128), (3, 100)])
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_kernel_arithmetic_equals_reference(rng, b, n_chunks, chunk):
+    """The tensor-core arithmetic the CUDA kernels run, on their operand
+    layouts (every query group size of the launch plan), gives the
+    reference's integer pairs, and with the index-aware selection the same
+    winners; 3 x 100 entries is a count no entry tile divides."""
+    n = n_chunks * chunk - 7
+    pat, msk, qpat, qmsk = tpm.planted_packed_case(rng, n=n, b=b)
+    pat_c, _ = teng._pad_chunks(pat, chunk)
+    msk_c, _ = teng._pad_chunks(msk, chunk)
     q_enc, q_mask = teng.prepare_query_planes(_t(qpat), _t(qmsk))
-    num, den = _kernel_arithmetic(q_enc, q_mask, _t(pat_c), _t(msk_c))
-    assert (den[:, 31] == 0).all()  # the dummy row
     enc, m = teng._unpack_encode_chunk(_t(pat_c).reshape(-1, BITS_BYTES),
                                        _t(msk_c).reshape(-1, BITS_BYTES))
     want_num, want_den = teng._plaintext_chunk_fractions(q_enc, q_mask, enc, m)
-    np.testing.assert_array_equal(num[:, :31].transpose(0, 2, 1), want_num.numpy())
-    np.testing.assert_array_equal(den[:, :31].transpose(0, 2, 1), want_den.numpy())
-    n_r, d_r, _ = tdec.fraction_min_rotations(_t(num), _t(den), axis=1)
-    got = torch.stack(tdec.fraction_argmin(n_r, d_r)).numpy()
     want = tpm.match_packed_small_b_reference(q_enc, q_mask, _t(pat_c), _t(msk_c))
-    np.testing.assert_array_equal(got, want.numpy())
+    got = torch.empty_like(want)
+    for q0, nq, qg in tpm._launch_plan(b):
+        num, den = _kernel_arithmetic(q_enc[q0:q0 + nq], q_mask[q0:q0 + nq],
+                                      _t(pat_c), _t(msk_c), qg)
+        assert (den[:, 31] == 0).all() and (num[:, 31] == 0).all()  # the dummy row
+        np.testing.assert_array_equal(num[:, :31].transpose(0, 2, 1), want_num[q0:q0 + nq].numpy())
+        np.testing.assert_array_equal(den[:, :31].transpose(0, 2, 1), want_den[q0:q0 + nq].numpy())
+        n_r, d_r, _ = tdec.fraction_min_rotations(_t(num), _t(den), axis=1)
+        got[:, q0:q0 + nq] = torch.stack(tdec.fraction_argmin(n_r, d_r))
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert got[2, 0] == 129
+
+
+@pytest.mark.parametrize("b,plan", [
+    (1, [(0, 1, 1)]), (2, [(0, 2, 2)]), (3, [(0, 3, 4)]), (4, [(0, 4, 4)]),
+    (7, [(0, 4, 4), (4, 3, 4)]), (8, [(0, 8, 4)]), (13, [(0, 12, 4), (12, 1, 1)]),
+    (33, [(0, 32, 4), (32, 1, 1)])])
+def test_launch_plan_covers_the_batch(b, plan):
+    assert tpm._launch_plan(b) == plan
 
 
 def test_small_b_ok_policy():
