@@ -39,6 +39,26 @@ once on one NVIDIA GPU, at full size, and check them.
   policy with only part of it resident, the rest streamed host -> card
   through the prefetch worker, equal to the resident party before and after
   a ``refresh``;
+- runs the sharded engines (``mpc_iris_tpu_torch.parallel``) on 4 shards
+  over the card's devices, repeated up to 4 (one card runs them one after
+  another, so the times are the sharded layer's overhead, not scaling):
+  ``ShardedPlaintextEngine`` over the same 1,048,576-entry packed DB, match
+  at B = 1, 8 (kernel (b) per shard) and 13 (the scan through kernel (a)),
+  B = 8 on a (2, 2) mesh, ``min_fractions`` at B = 1 and ``find_under`` at
+  B = 8 (kernel (c) per shard), each bit-equal to the single-card engine,
+  with a duplicate pair across shards (the lower index on the higher shard)
+  resolved to the lower index; a ``ShardedKeyedShareEngine`` fold pass at
+  1,048,576 entries (one kernel (d) launch per chunk) equal to the
+  single-card checksum at B = 1 and 8; the 3-party MPC query at 262,144
+  entries over sharded parties and masks, winners equal to the single-card
+  query's; and a party of several processes (``torch.distributed``: on one
+  card 2 ranks of 2 shards over gloo, since NCCL refuses two ranks on one
+  card; with several cards one rank a card over NCCL), every non-local row
+  poisoned: its B = 8 match, B = 1 spectrum, share dots and keyed checksum
+  equal to the single-card engines' on the clean data. Kernels (b) and
+  (c) are held against their plain versions on every shard's own slab, at
+  B = 1 and 8 on 4 shards and at B = 4 a column on the (2, 2) mesh. On a
+  machine with several cards the same command spreads the shards over them;
 - counts the kernel launches of each path's run, and times each request and
   each kernel beside its plain version, labelled with the card's name and
   limit; the packed kernels (b) and (c) at B = 1, 8, 16, 32, 64 and 128,
@@ -107,6 +127,22 @@ from mpc_iris_tpu_torch.ops.scan import (
     prepare_query_planes,
 )
 from mpc_iris_tpu_torch.ops.select import select_chunk, select_chunk_reference
+from mpc_iris_tpu_torch.parallel import (
+    ShardedKeyedShareEngine,
+    ShardedMasksEngine,
+    ShardedPlaintextEngine,
+    ShardedShareEngine,
+    fraction_allmin,
+    make_mesh,
+)
+from mpc_iris_tpu_torch.parallel.party_smoke import (
+    KEY,
+    dots_digest,
+    make_data,
+    query_rows,
+    run_party,
+)
+from mpc_iris_tpu_torch.parallel.sharded import effective_chunk
 from mpc_iris_tpu_torch.protocol.coordinator import (
     _sum_decode_argmin_device_batch,
     _sum_decode_minfrac_device_batch,
@@ -147,6 +183,13 @@ RFC_ROW = (0x09000000, 0x4a000000, bytes.fromhex(
 # 6.7 GB of planes, so the streamed chunk's transients are reserved first,
 # and about half its planes after them
 OOC_BUDGET = 6 * 2**30
+# the sharded phase: D shards over the card's devices, repeated up to D; the
+# 2-process party's share DB and the time its ranks may take together
+SHARDS = 4
+PARTY_SHARE_DB = 65_536
+PARTY_TIMEOUT = 300
+# host-wall repetitions of each sharded request and of its single-card twin
+SHARDED_REPS = 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -351,9 +394,26 @@ def keyed_phase(dev: torch.device, qpat, qmsk, n: int, card: str) -> int:
     return launches
 
 
-def mpc_phase(dev: torch.device, pat, msk, planted, dup, qpat, qmsk, card: str) -> int:
+def to_card(stream, dev: torch.device) -> torch.Tensor:
+    """The coordinator's side: each received chunk to the card as it comes
+    (the streams' host blocks are pinned), joined there."""
+    return torch.cat([torch.from_numpy(b.view(np.int16)).to(dev) for b in stream])
+
+
+def mpc_query(parties, masks, qp, qm, dev: torch.device):
+    """One MPC query: every party's entry-major stream and the masks
+    engine's, then the coordinator's batched decode steps on the card.
+    Returns (winners int32 [3, B], spectrum [2, N, B]) on the host."""
+    shares = tuple(to_card(p.stream(qp, qm, entry_major=True), dev) for p in parties)
+    den = to_card(masks.stream(qm, entry_major=True), dev)
+    return (_sum_decode_argmin_device_batch(shares, den).cpu(),
+            _sum_decode_minfrac_device_batch(shares, den).cpu())
+
+
+def mpc_phase(dev: torch.device, pat, msk, planted, dup, qpat, qmsk, card: str):
     """One 3-party MPC query (B = 8) on the card. Returns kernel (d)'s
-    launches in the counted query."""
+    launches in the counted query, the data-carrying share (host), the
+    winners and the query's host wall time."""
     n = pat.shape[0]
     t0 = time.perf_counter()
     data_share = share_split_device(pat, msk, 3, SHARE_KEY, device=dev, shares=[2])[0]
@@ -373,16 +433,8 @@ def mpc_phase(dev: torch.device, pat, msk, planted, dup, qpat, qmsk, card: str) 
           f"built in {time.perf_counter() - t0:.2f} s; device memory "
           f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
 
-    def to_card(stream):
-        # the coordinator's side: each received chunk to the card as it comes
-        # (the streams' host blocks are pinned), joined there
-        return torch.cat([torch.from_numpy(b.view(np.int16)).to(dev) for b in stream])
-
     def query(qp, qm):
-        shares = tuple(to_card(p.stream(qp, qm, entry_major=True)) for p in parties)
-        den = to_card(masks.stream(qm, entry_major=True))
-        return (_sum_decode_argmin_device_batch(shares, den).cpu(),
-                _sum_decode_minfrac_device_batch(shares, den).cpu())
+        return mpc_query(parties, masks, qp, qm, dev)
 
     bb = N_PLANTED
     share_planes_kernel.launches = 0
@@ -421,9 +473,9 @@ def mpc_phase(dev: torch.device, pat, msk, planted, dup, qpat, qmsk, card: str) 
         if prev is not None:
             os.environ["MPC_IRIS_HBM_BUDGET"] = prev
     check(0 < ooc.resident_entries < n, "out-of-core party: part resident, part streamed")
-    want = to_card(parties[2].stream(qpat[:bb], qmsk[:bb], entry_major=True))
+    want = to_card(parties[2].stream(qpat[:bb], qmsk[:bb], entry_major=True), dev)
     for when in ("before", "after"):
-        got = to_card(ooc.stream(qpat[:bb], qmsk[:bb], entry_major=True))
+        got = to_card(ooc.stream(qpat[:bb], qmsk[:bb], entry_major=True), dev)
         check(torch.equal(got, want), f"out-of-core party {when} refresh: stream equals "
               "the resident party's")
         ooc.refresh(data_share)
@@ -431,7 +483,223 @@ def mpc_phase(dev: torch.device, pat, msk, planted, dup, qpat, qmsk, card: str) 
     print(f"  party 2 out of core ({ooc.resident_entries} of {n} resident, budget "
           f"{OOC_BUDGET / 2**30:.0f} GiB, default policy, prefetch on): stream equals the "
           f"resident party's before and after a refresh; {o_ms:.3f} ms [{card}]")
+    return launches, data_share, win, ms
+
+
+def result_rows(results):
+    return [(r.index, r.distance, r.numerator, r.denominator) for r in results]
+
+
+def cross_shard_pair(n: int, chunk: int, taken) -> tuple[int, int]:
+    """(lower, higher) DB indices of a duplicate pair on different shards
+    of the strided D-shard layout: the lower on the last shard, the higher
+    on shard 0 near the DB's end, both clear of ``taken``."""
+    lo = (SHARDS - 1) * chunk + 77
+    hi = (n // chunk - SHARDS) * chunk + 123
+    check(lo < hi and (lo // chunk) % SHARDS == SHARDS - 1 and (hi // chunk) % SHARDS == 0
+          and not {lo, hi} & set(int(t) for t in taken), "cross-shard duplicate pair")
+    return lo, hi
+
+
+def shard_devices() -> list[torch.device]:
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(SHARDS)]
+
+
+def check_shard_kernels(engines, sq, sm) -> dict:
+    """Kernels (b) and (c) against their plain versions, bit for bit, on
+    every shard's own slab at the shapes the sharded engines give them:
+    ``engines`` is a list of (engine, mesh label, query row slices, one a
+    launch). Returns each kernel's largest absolute difference (0)."""
+    pairs = ((match_packed_small_b, match_packed_small_b_reference),
+             (fractions_packed_small_b, fractions_packed_small_b_reference))
+    err = {k.__name__: 0 for k, _ in pairs}
+    for eng, shape, slices in engines:
+        for i, per_dev in eng._db.items():
+            for d_, (a, b) in per_dev.items():
+                for rows_ in slices:
+                    q_enc, q_mask = planes(sq[rows_], sm[rows_], d_)
+                    for kern, ref in pairs:
+                        got, want = kern(q_enc, q_mask, a, b), ref(q_enc, q_mask, a, b)
+                        e = int((got.int() - want.int()).abs().max())
+                        check(e == 0, f"{kern.__name__} on shard {i} of {shape} "
+                              f"[{a.shape[0]} x {a.shape[1]}] B={q_enc.shape[0]}: kernel "
+                              "equals plain version")
+                        err[kern.__name__] = max(err[kern.__name__], e)
+                        del got, want
+    return err
+
+
+def sharded_match_phase(dev, packed, pat, msk, planted, xpair, qpat, qmsk, card):
+    """ShardedPlaintextEngine over the packed DB on D shards: match at B = 1,
+    8 (kernel (b) per shard) and 13 (the scan through kernel (a) per shard),
+    B = 8 on a (D/2, 2) mesh, min_fractions at B = 1 and find_under at B = 8
+    (kernel (c) per shard), each bit-equal to the single-card engine. Row 0
+    of the queries is the lower entry of a duplicate pair across shards,
+    rows 1-8 the planted self-matches. Then kernels (b) and (c) on every
+    shard's slab against their plain versions. Returns the kernels'
+    launches and the largest differences of (b) and (c)."""
+    devices = shard_devices()
+    t0 = time.perf_counter()
+    eng = ShardedPlaintextEngine(pat, msk, make_mesh(SHARDS, devices=devices))
+    wide = ShardedPlaintextEngine(pat, msk, make_mesh(SHARDS // 2, 2, devices=devices))
+    torch.cuda.synchronize()
+    print(f"sharded: {SHARDS} shards on {[str(d) for d in devices]}, chunk {eng.chunk}, "
+          f"{eng.g_blocks} chunks a shard, and a ({SHARDS // 2}, 2) mesh; built in "
+          f"{time.perf_counter() - t0:.2f} s. " + (
+              "One card runs the shards one after another, so the times below measure "
+              "the sharded layer's overhead, not scaling" if len(set(devices)) == 1 else
+              f"{len(set(devices))} cards run the shards side by side"))
+    xl, xh = xpair
+    sq = np.concatenate([pat[xl:xl + 1], qpat[:12]])
+    sm = np.concatenate([msk[xl:xl + 1], qmsk[:12]])
+    requests = [(eng, "(4, 1)", 1), (eng, "(4, 1)", 8), (eng, "(4, 1)", 13), (wide, "(2, 2)", 8)]
+    counted = (select_chunk, match_packed_small_b, fractions_packed_small_b)
+
+    for fn in counted:
+        fn.launches = 0
+    served = [e.match(sq[:bb], sm[:bb]) for e, _, bb in requests]
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"launches in the sharded match run: {json.dumps(launches)}")
+    check(launches["select_chunk"] > 0 and launches["match_packed_small_b"] > 0,
+          "kernels (a) and (b) launched on the sharded match path")
+    for fn in counted:
+        fn.launches = 0
+    spectrum = eng.min_fractions(sq[:1], sm[:1])
+    under = eng.find_under(sq[:8], sm[:8], AUDIT_THRESHOLD)
+    audit = {fn.__name__: fn.launches for fn in counted}
+    print(f"launches in the sharded audit run: {json.dumps(audit)}")
+    check(audit["fractions_packed_small_b"] > 0, "kernel (c) launched on the sharded audit path")
+    launches["fractions_packed_small_b"] = audit["fractions_packed_small_b"]
+
+    for (e, shape, bb), res in zip(requests, served):
+        check(result_rows(res) == result_rows(packed.match(sq[:bb], sm[:bb])),
+              f"sharded {shape} B={bb}: winners bit-equal to the single-card engine")
+        want = [(xl, 0.0)] + [(int(p), 0.0) for p in planted[:min(bb, 9) - 1]]
+        check([(r.index, r.distance) for r in res[:9]] == want,
+              f"sharded {shape} B={bb}: planted self-matches at 0.0, duplicate {xl}/{xh} "
+              f"-> {res[0].index}")
+        print(f"sharded request {shape} B={bb}: winners bit-equal to the single-card engine; "
+              f"planted self-matches at 0.0; cross-shard duplicate {xl} (shard "
+              f"{(xl // e.chunk) % e.n_shards}) / {xh} (shard {(xh // e.chunk) % e.n_shards}) -> "
+              f"{res[0].index}")
+    check(np.array_equal(spectrum, packed.min_fractions(sq[:1], sm[:1])),
+          "sharded min_fractions B=1: spectrum bit-equal to the single-card engine")
+    check(rows(under) == rows(packed.find_under(sq[:8], sm[:8], AUDIT_THRESHOLD)),
+          "sharded find_under B=8: lists equal the single-card engine's")
+    check([(m.index, m.distance) for m in under[0][:2]] == [(xl, 0.0), (xh, 0.0)],
+          "sharded find_under: the cross-shard duplicates in index order")
+    print(f"sharded audit: min_fractions B=1 bit-equal, find_under B=8 t={AUDIT_THRESHOLD} "
+          f"equal to the single-card engine ({sum(map(len, under))} hits)")
+    err = check_shard_kernels([(eng, "(4, 1)", (slice(0, 1), slice(0, 8))),
+                               (wide, "(2, 2)", (slice(0, 4), slice(4, 8)))], sq, sm)
+    print(f"kernels match_packed_small_b, fractions_packed_small_b: equal their plain "
+          f"versions on every shard's slab ({eng.g_blocks} x {eng.chunk} on (4, 1) at B = 1 "
+          f"and 8, {wide.g_blocks} x {wide.chunk} on (2, 2) at B = 4 a column, the "
+          "sharded queries)")
+
+    for e, shape, bb in requests:
+        s_ms = wall_ms(lambda: e.match(sq[:bb], sm[:bb]), SHARDED_REPS)
+        p_ms = wall_ms(lambda: packed.match(sq[:bb], sm[:bb]), SHARDED_REPS)
+        print(f"time sharded request {shape} N={e.count} B={bb}: {s_ms:.3f} ms, single-card "
+              f"{p_ms:.3f} ms (median of {SHARDED_REPS}, host wall) [{card}]")
+    s_ms = wall_ms(lambda: eng.find_under(sq[:8], sm[:8], AUDIT_THRESHOLD), SHARDED_REPS)
+    p_ms = wall_ms(lambda: packed.find_under(sq[:8], sm[:8], AUDIT_THRESHOLD), SHARDED_REPS)
+    print(f"time sharded find_under (4, 1) B=8: {s_ms:.3f} ms, single-card {p_ms:.3f} ms "
+          f"(median of {SHARDED_REPS}, host wall) [{card}]")
+    tri = [torch.randint(0, 12800, (3, 8), dtype=torch.int32, device=dev) for _ in range(SHARDS)]
+    f_ms = cuda_ms(lambda: fraction_allmin(*zip(*tri), dev), 20)
+    print(f"time fraction_allmin over {SHARDS} shards B=8: {f_ms:.4f} ms (CUDA events) [{card}]")
+    return launches, err
+
+
+def sharded_keyed_phase(dev, qpat, qmsk, n, card) -> int:
+    """ShardedKeyedShareEngine at n entries on D shards, every chunk through
+    kernel (d): the fold-pass checksum at B = 1 and 8 equals the single-card
+    KeyedShareEngine's. Returns (d)'s launches in the counted pass (B = 1)."""
+    keyed = ShardedKeyedShareEngine(SHARE_KEY, 0, n, make_mesh(SHARDS, devices=shard_devices()))
+    single = KeyedShareEngine(SHARE_KEY, 0, n, device=dev, hbm_budget=0)
+    q1 = planes(qpat[:1], qmsk[:1], dev)[0]
+    share_planes_kernel.launches = 0
+    checksum = keyed.fold_pass_fn()(q1)
+    launches = share_planes_kernel.launches
+    print(f"launches in the sharded keyed pass: {json.dumps({'share_planes_kernel': launches})}")
+    check(launches == keyed.num_blocks() * SHARDS,
+          "sharded keyed pass: one kernel (d) launch per chunk")
+    for bb in (1, 8):
+        q = planes(qpat[:bb], qmsk[:bb], dev)[0]
+        got = int(keyed.fold_pass_fn()(q))
+        check(got == int(single.fold_pass_fn()(q)) and (bb > 1 or got == int(checksum)),
+              f"sharded keyed pass B={bb}: checksum equals the single-card engine's")
+        s_ms = wall_ms(lambda: keyed.fold_pass_fn()(q), SHARDED_REPS)
+        p_ms = wall_ms(lambda: single.fold_pass_fn()(q), SHARDED_REPS)
+        print(f"sharded keyed pass N={n} B={bb}: checksum {got:#010x} equals the single-card "
+              f"engine's; {s_ms:.3f} ms, single-card {p_ms:.3f} ms (median of {SHARDED_REPS}, "
+              f"host wall) [{card}]")
     return launches
+
+
+def sharded_mpc_phase(dev, dmsk, data_share, dqpat, dqmsk, want_win, single_ms, card) -> int:
+    """One 3-party MPC query (B = 8) over sharded parties: two keyed, one
+    data share, and a sharded masks engine; the coordinator's decode steps
+    on the card. The winners equal the single-card MPC query's. Returns
+    kernel (d)'s launches in the counted query."""
+    mesh = make_mesh(SHARDS, devices=shard_devices())
+    n = data_share.shape[0]
+    parties = [ShardedKeyedShareEngine(SHARE_KEY, 0, n, mesh),
+               ShardedKeyedShareEngine(SHARE_KEY, 1, n, mesh),
+               ShardedShareEngine(data_share, mesh)]
+    masks = ShardedMasksEngine(dmsk, mesh)
+    bb = N_PLANTED
+    share_planes_kernel.launches = 0
+    win, _ = mpc_query(parties, masks, dqpat[:bb], dqmsk[:bb], dev)
+    launches = share_planes_kernel.launches
+    print(f"launches in the sharded MPC query: {json.dumps({'share_planes_kernel': launches})}")
+    check(launches == 2 * parties[0].num_blocks() * SHARDS,
+          "sharded MPC query: every keyed chunk regenerated through kernel (d)")
+    check(torch.equal(win, want_win), "sharded MPC query: winners equal the single-card query's")
+    ms = wall_ms(lambda: mpc_query(parties, masks, dqpat[:bb], dqmsk[:bb], dev), 3)
+    print(f"sharded mpc query N={n} B={bb}: winners equal the single-card query's; "
+          f"{ms:.3f} ms, single-card {single_ms:.3f} ms (median of 3, host wall) [{card}]")
+    return launches
+
+
+def party_phase(dev, seed: int, card: str) -> None:
+    """A party of several processes: on one card 2 ranks of 2 shards over
+    gloo (NCCL refuses two ranks on one card); with several cards one rank
+    per card, up to D, over NCCL. Each rank's non-local rows are poisoned;
+    the B = 8 match over the packed DB, a B = 1 spectrum, a share engine's
+    dots and a keyed checksum must equal the single-card engines' on the
+    clean data."""
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    procs = min(cards, SHARDS) if backend == "nccl" else 2
+    t0 = time.perf_counter()
+    out = run_party(procs=procs, backend=backend, device=str(dev), n=PACKED_DB,
+                    n_share=PARTY_SHARE_DB, chunk=DEFAULT_CHUNK, batch=N_PLANTED, seed=seed,
+                    shards_per_rank=SHARDS // procs, timeout=PARTY_TIMEOUT)
+    party_s = time.perf_counter() - t0
+    pat, msk, share = make_data(seed, PACKED_DB, PARTY_SHARE_DB)
+    q = query_rows(PACKED_DB, N_PLANTED)
+    single = PlaintextEngine(pat, msk, device=dev)
+    res = single.match(pat[q], msk[q])
+    check(out["winners"] == [[r.index, r.numerator, r.denominator] for r in res]
+          and [r.index for r in res] == q.tolist(),
+          f"{procs}-process party B=8: winners equal the single-card engine's, self-matches found")
+    check(out["spectrum_sha256"] == dots_digest(single.min_fractions(pat[q[:1]], msk[q[:1]])),
+          f"{procs}-process party: B=1 spectrum equals the single-card engine's")
+    check(out["dots_sha256"] == dots_digest(ShareEngine(share, device=dev).dots(pat[q], msk[q])),
+          f"{procs}-process party: share dots equal the single-card ShareEngine's on the "
+          "clean share")
+    keyed = KeyedShareEngine(KEY, 0, PACKED_DB, device=dev, hbm_budget=0)
+    check(out["keyed_checksum"] == int(keyed.fold_pass_fn()(planes(pat[q], msk[q], dev)[0])),
+          f"{procs}-process party: keyed checksum equals the single-card engine's")
+    p_ms = wall_ms(lambda: single.match(pat[q], msk[q]), 3)
+    print(f"{procs}-process party: backend {out['backend']}, {out['procs']} ranks x "
+          f"{out['shards'] // out['procs']} shards on {out['devices']}, rank 0 loaded "
+          f"{out['local_rows']} of {PACKED_DB} rows (the rest poisoned); match B={N_PLANTED}, "
+          f"B=1 spectrum, share dots ({PARTY_SHARE_DB} rows) and keyed checksum equal the "
+          f"single-card engines'; match {out['match_ms']:.3f} ms (rank 0, median of 3), "
+          f"single-card {p_ms:.3f} ms; the party's run took {party_s:.1f} s [{card}]")
 
 
 def main() -> int:
@@ -471,6 +739,9 @@ def main() -> int:
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
     pat, msk, planted, dup, qpat, qmsk = make_db(rng, PACKED_DB)
+    xpair = cross_shard_pair(PACKED_DB, effective_chunk(DEFAULT_CHUNK, PACKED_DB, SHARDS, "cuda"),
+                             [*planted, dup])
+    pat[xpair[1]], msk[xpair[1]] = pat[xpair[0]], msk[xpair[0]]
     dpat, dmsk, dplanted, ddup, dqpat, dqmsk = make_db(rng, DENSE_DB)
     print(f"data: packed DB {PACKED_DB} entries, dense DB {DENSE_DB} entries, "
           f"seed {args.seed}, made in {time.perf_counter() - t0:.1f} s")
@@ -715,8 +986,9 @@ def main() -> int:
     # (d) the ChaCha20 share planes: the keyed party, then the MPC query
     err = check_share_planes_kernel(dev, packed.chunk)
     launches["share_planes_kernel"] = keyed_phase(dev, qpat, qmsk, KEYED_DB, card)
-    launches["share_planes_kernel"] += mpc_phase(dev, dpat, dmsk, dplanted, ddup,
-                                                 dqpat, dqmsk, card)
+    mpc_launches, data_share, mpc_win, mpc_ms = mpc_phase(dev, dpat, dmsk, dplanted, ddup,
+                                                  dqpat, dqmsk, card)
+    launches["share_planes_kernel"] += mpc_launches
     kw = key_tensor(SHARE_KEY, dev)
     k_ms = cuda_ms(lambda: share_planes_kernel(kw, 0, 0, packed.chunk), 20)
     p_ms = cuda_ms(lambda: share_planes_natural(kw, 0, 0, packed.chunk), 2)
@@ -733,6 +1005,23 @@ def main() -> int:
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None})
 
+    # the sharded phase, after the single-card engines it does not need
+    del dense, eng, requests, audit_requests
+    torch.cuda.empty_cache()
+    sharded, shard_err = sharded_match_phase(dev, packed, pat, msk, planted, xpair, qpat,
+                                             qmsk, card)
+    sharded["share_planes_kernel"] = sharded_keyed_phase(dev, qpat, qmsk, KEYED_DB, card)
+    sharded["share_planes_kernel"] += sharded_mpc_phase(dev, dmsk, data_share, dqpat, dqmsk,
+                                                        mpc_win, mpc_ms, card)
+    del packed, data_share, args4
+    torch.cuda.empty_cache()
+    party_phase(dev, args.seed, card)
+    print(f"launches in the sharded paths: {json.dumps(sharded)}")
+    check(all(v > 0 for v in sharded.values()), "every kernel launched on the sharded paths")
+    for k in kernels:  # the main paths' launches: single-card and sharded
+        k["launches"] += sharded[k["name"]]
+        k["max_abs_err"] = max(k["max_abs_err"], shard_err.get(k["name"], 0))
+
     check("jax" not in sys.modules, "no jax imported")
     ref = sorted(m for m in sys.modules if m == "mpc_iris_tpu" or m.startswith("mpc_iris_tpu."))
     check(not ref, f"no module of the JAX package imported: {ref}")
@@ -740,7 +1029,7 @@ def main() -> int:
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

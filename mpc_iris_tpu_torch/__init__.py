@@ -1,6 +1,6 @@
-"""mpc_iris_tpu_torch — the plaintext match, threshold-audit and MPC
-participant paths of ``mpc_iris_tpu`` on PyTorch and CUDA (NVIDIA Hopper,
-sm_90a).
+"""mpc_iris_tpu_torch — the plaintext match, threshold-audit, MPC
+participant and sharded paths of ``mpc_iris_tpu`` on PyTorch and CUDA
+(NVIDIA Hopper, sm_90a).
 
 The JAX package ``mpc_iris_tpu`` is the reference; this package mirrors its
 layout and names so each function has an obvious counterpart:
@@ -19,6 +19,9 @@ layout and names so each function has an obvious counterpart:
                 ``find_under``); the MPC engines ``ShareEngine``,
                 ``KeyedShareEngine`` and ``MasksEngine``
 - ``protocol``  the coordinator's share-sum-and-decode steps
+- ``parallel``  the sharded engines over a mesh of devices (a device may
+                hold several shards), the exact cross-shard winner fold,
+                and a party of several processes (``torch.distributed``)
 
 It imports ``torch`` and nothing of ``jax`` or of the JAX package: what it
 needs of the JAX package's JAX-free modules is copied (``constants``,

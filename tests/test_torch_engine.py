@@ -87,7 +87,8 @@ def test_golden_distances():
 def test_import_leaves_jax_out():
     """The port imports neither jax nor any module of the JAX package."""
     code = ("import sys, mpc_iris_tpu_torch, mpc_iris_tpu_torch.models, "
-            "mpc_iris_tpu_torch.ops, mpc_iris_tpu_torch.protocol\n"
+            "mpc_iris_tpu_torch.ops, mpc_iris_tpu_torch.protocol, mpc_iris_tpu_torch.parallel, "
+            "mpc_iris_tpu_torch.parallel.party_smoke\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n"
             "ref = sorted(m for m in sys.modules\n"
             "             if m == 'mpc_iris_tpu' or m.startswith('mpc_iris_tpu.'))\n"

@@ -244,3 +244,71 @@ def test_share_engine_prefetch_on_card_equals_cpu(cuda, monkeypatch):
         assert 2 in card._prefetch
         card.refresh(grown)
         assert not card._prefetch
+
+
+def test_sharded_engines_on_card_equal_single(cuda):
+    """The sharded engines on four shards of one card ([cuda] * 4) against
+    the single-card engines, with each kernel's launches through the
+    sharded path: (b) and (c) once per shard at B <= 8, (a) once per shard
+    chunk at B = 13, (d) once per regenerated chunk."""
+    from mpc_iris_tpu_torch.parallel import (
+        ShardedKeyedShareEngine,
+        ShardedMasksEngine,
+        ShardedPlaintextEngine,
+        ShardedShareEngine,
+        make_mesh,
+    )
+
+    rng = np.random.default_rng(9)
+    n = 4 * 1024 + 37
+    pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    pat[1029], msk[1029] = pat[300], msk[300]  # 300 on shard 1, its twin on shard 0
+    q = np.concatenate([[300, 7, 2100, 4000, n - 1], rng.integers(0, n, 8)])
+    mesh = make_mesh(4, devices=[cuda] * 4)
+    sharded = ShardedPlaintextEngine(pat, msk, mesh, chunk=256)
+    single = PlaintextEngine(pat, msk, device=cuda, chunk=256)
+    assert sharded.chunk == 256 and sharded.g_blocks == 5
+
+    def rows(res):
+        return [(r.index, r.distance, r.numerator, r.denominator) for r in res]
+
+    for b, kernel, per_call in ((1, tpm.match_packed_small_b, 4),
+                                (8, tpm.match_packed_small_b, 4),
+                                (13, tsel.select_chunk, 4 * 5)):
+        before = kernel.launches
+        got = rows(sharded.match(pat[q[:b]], msk[q[:b]]))
+        assert kernel.launches == before + per_call
+        assert got == rows(single.match(pat[q[:b]], msk[q[:b]]))
+        assert [g[:2] for g in got[:5]] == [(int(i), 0.0) for i in q[:min(b, 5)]]
+    before = tpm.fractions_packed_small_b.launches
+    nd = sharded.min_fractions(pat[q[:8]], msk[q[:8]])
+    assert tpm.fractions_packed_small_b.launches == before + 4
+    np.testing.assert_array_equal(nd, single.min_fractions(pat[q[:8]], msk[q[:8]]))
+    got = sharded.find_under(pat[q[:8]], msk[q[:8]], 0.375)
+    assert got == single.find_under(pat[q[:8]], msk[q[:8]], 0.375)
+    assert [m.index for m in got[0]] == [300, 1029]
+    wide = ShardedPlaintextEngine(pat, msk, make_mesh(2, 2, devices=[cuda] * 4), chunk=256)
+    assert rows(wide.match(pat[q[:8]], msk[q[:8]])) == rows(single.match(pat[q[:8]], msk[q[:8]]))
+
+    key = native.derive_insecure_key(5)
+    count = 4 * 256 * 2
+    keyed = ShardedKeyedShareEngine(key, 0, count, mesh, chunk=256)
+    ref = KeyedShareEngine(key, 0, count, device=cuda, chunk=256, hbm_budget=0)
+    for b in (1, 8):
+        qe = prepare_query_planes(torch.from_numpy(pat[q[:b]]).to(cuda),
+                                  torch.from_numpy(msk[q[:b]]).to(cuda))[0]
+        before = tcha.share_planes_kernel.launches
+        got = int(keyed.fold_pass_fn()(qe))
+        assert tcha.share_planes_kernel.launches == before + 8
+        assert got == int(ref.fold_pass_fn()(qe))
+    np.testing.assert_array_equal(keyed.dots(pat[q[:3]], msk[q[:3]]),
+                                  ref.dots(pat[q[:3]], msk[q[:3]]))
+    share = rng.integers(0, 1 << 16, (n, 12800), dtype=np.uint16)
+    np.testing.assert_array_equal(
+        ShardedShareEngine(share, mesh, chunk=256).dots(pat[q[:3]], msk[q[:3]]),
+        ShareEngine(share, device=cuda, chunk=256).dots(pat[q[:3]], msk[q[:3]]))
+    for storage in ("dense", "packed"):
+        np.testing.assert_array_equal(
+            ShardedMasksEngine(msk, mesh, chunk=256, storage=storage).dots(msk[q[:3]]),
+            MasksEngine(msk, device=cuda, chunk=256).dots(msk[q[:3]]))

@@ -401,7 +401,8 @@ def test_jax_roles_serve_port_engines():
 
 @pytest.mark.parametrize("module", ["mpc_iris_tpu_torch.ops.chacha",
                                     "mpc_iris_tpu_torch.models",
-                                    "mpc_iris_tpu_torch.protocol"])
+                                    "mpc_iris_tpu_torch.protocol",
+                                    "mpc_iris_tpu_torch.parallel"])
 def test_import_leaves_jax_out(module):
     code = f"import sys, {module}; assert 'jax' not in sys.modules, 'jax imported'"
     subprocess.run([sys.executable, "-c", code], check=True,
