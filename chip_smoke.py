@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port's plaintext match and threshold-audit paths
-once on one NVIDIA GPU, at full size, and check them.
+"""Drive the PyTorch + CUDA port's paths (plaintext match, threshold audit,
+MPC participants, sharded engines, the MPC serving roles) once on one
+NVIDIA GPU, at full size, and check them.
 
 - builds the CUDA kernels from mpc_iris_tpu_torch/csrc with nvcc (sm_90a);
 - serves match requests through ``PlaintextEngine.match``: B = 1 and 8 on a
@@ -55,10 +56,25 @@ once on one NVIDIA GPU, at full size, and check them.
   card 2 ranks of 2 shards over gloo, since NCCL refuses two ranks on one
   card; with several cards one rank a card over NCCL), every non-local row
   poisoned: its B = 8 match, B = 1 spectrum, share dots and keyed checksum
-  equal to the single-card engines' on the clean data. Kernels (b) and
-  (c) are held against their plain versions on every shard's own slab, at
-  B = 1 and 8 on 4 shards and at B = 4 a column on the (2, 2) mesh. On a
-  machine with several cards the same command spreads the shards over them;
+  equal to the single-card engines' on the clean data, and a party of 4
+  ranks of one device on a (2, 2) mesh, whose "db" rows span two ranks
+  each (its B = 2 spectrum and find_under lists checked too). Kernels (b)
+  and (c) are held against their plain versions on every shard's own
+  slab, at B = 1 and 8 on 4 shards and at B = 4 a column on the (2, 2)
+  mesh. On a machine with several cards the same command spreads the
+  shards over them;
+- serves the 3-party MPC query with each participant in its own process
+  (``mpc_iris_tpu_torch.protocol.party_proc``: two keyed parties and the
+  data party, each rebuilt from the seed and the key on card p %
+  device_count, serving the reference, batched and chain wires) behind a
+  ``Coordinator`` and ``QueryServer`` in this process: 8 concurrent
+  ``query_remote`` clients micro-batched into one B = 8 round, one B = 1
+  query on the reference wire, ``query_remote_under`` at 0.375, a
+  ``PersistentQueryClient`` with 3 records, a chain round (the coordinator
+  holding the data share) and two rounds in flight; every winner equal to
+  ``PlaintextEngine.match`` and the in-process MPC query, the audit list
+  to ``find_under``; each keyed process must launch kernel (d); the
+  processes are stopped by SIGTERM to their PIDs and killed at a deadline;
 - counts the kernel launches of each path's run, and times each request and
   each kernel beside its plain version, labelled with the card's name and
   limit; the packed kernels (b) and (c) at B = 1, 8, 16, 32, 64 and 128,
@@ -81,10 +97,12 @@ launch or check fails.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import hashlib
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import threading
@@ -135,18 +153,22 @@ from mpc_iris_tpu_torch.parallel import (
     fraction_allmin,
     make_mesh,
 )
-from mpc_iris_tpu_torch.parallel.party_smoke import (
-    KEY,
-    dots_digest,
-    make_data,
-    query_rows,
-    run_party,
-)
+from mpc_iris_tpu_torch.parallel.party_smoke import KEY, dots_digest, run_party, under_digest
 from mpc_iris_tpu_torch.parallel.sharded import effective_chunk
+from mpc_iris_tpu_torch.protocol import (
+    Coordinator,
+    PersistentQueryClient,
+    QueryServer,
+    query_remote,
+    query_remote_under,
+)
 from mpc_iris_tpu_torch.protocol.coordinator import (
     _sum_decode_argmin_device_batch,
     _sum_decode_minfrac_device_batch,
 )
+from mpc_iris_tpu_torch.protocol.party_proc import start_parties, stop_parties
+from mpc_iris_tpu_torch.protocol.wire import batched_query_bytes
+from mpc_iris_tpu_torch.smoke_data import N_PLANTED, db_rng, make_data, make_db, query_rows
 
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): memory, int8 tensor
 # ops; and 32-bit ALU instructions on the CUDA cores (its 67 TFLOP/s float32
@@ -163,7 +185,6 @@ SWEEP = (1, 8, 16, 32, 64, 128)
 # DB sizes: the packed and dense defaults of the reference's bench.py
 PACKED_DB = 1_048_576
 DENSE_DB = 262_144
-N_PLANTED = 8
 # the audit: the reference bench.py's audit threshold; the overflow case's
 # rank and compact buffer
 AUDIT_THRESHOLD = 0.375
@@ -190,29 +211,18 @@ PARTY_SHARE_DB = 65_536
 PARTY_TIMEOUT = 300
 # host-wall repetitions of each sharded request and of its single-card twin
 SHARDED_REPS = 10
+# the protocol phase: the seconds its participant processes may take to
+# start (engines built) and to stop, the deadline of one read round, and the
+# repetitions of each timed request
+PARTIES_START_S = 240
+PARTIES_STOP_S = 60
+ROUND_TIMEOUT_S = 60
+PROTOCOL_REPS = 3
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def make_db(rng: np.random.Generator, n: int):
-    """Random packed DB uint8 [n, 1600] x2 with 8 planted entries, whose
-    rotated copies are the first 8 queries, and planted[0] duplicated at a
-    higher index in another chunk, congruent to it mod 128."""
-    pat = np.frombuffer(rng.bytes(n * BITS_BYTES), np.uint8).reshape(n, BITS_BYTES).copy()
-    msk = np.frombuffer(rng.bytes(n * BITS_BYTES), np.uint8).reshape(n, BITS_BYTES).copy()
-    planted = np.sort(rng.choice(n // 2, N_PLANTED, replace=False))
-    dup = int(planted[0]) + 128 * (n // 256)
-    pat[dup], msk[dup] = pat[planted[0]], msk[planted[0]]
-    rots = rng.integers(-15, 16, N_PLANTED)
-    qpat = np.stack([Bits(pat[i]).rotated(int(r)).data for i, r in zip(planted, rots)])
-    qmsk = np.stack([Bits(msk[i]).rotated(int(r)).data for i, r in zip(planted, rots)])
-    extra = 128 - N_PLANTED
-    qpat = np.concatenate([qpat, rng.integers(0, 256, (extra, BITS_BYTES), dtype=np.uint8)])
-    qmsk = np.concatenate([qmsk, rng.integers(0, 256, (extra, BITS_BYTES), dtype=np.uint8)])
-    return pat, msk, planted, dup, qpat, qmsk
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -505,6 +515,11 @@ def shard_devices() -> list[torch.device]:
     return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(SHARDS)]
 
 
+def party_devices() -> list[torch.device]:
+    """The protocol phase's participant p on card p % device_count."""
+    return [torch.device("cuda", p % torch.cuda.device_count()) for p in range(3)]
+
+
 def check_shard_kernels(engines, sq, sm) -> dict:
     """Kernels (b) and (c) against their plain versions, bit for bit, on
     every shard's own slab at the shapes the sharded engines give them:
@@ -663,43 +678,298 @@ def sharded_mpc_phase(dev, dmsk, data_share, dqpat, dqmsk, want_win, single_ms, 
     return launches
 
 
+def served_round_ms(times: list, rounds: int) -> str:
+    """The Coordinator's per-read-round times (``Coordinator.round_times``)
+    of ``rounds`` served connection rounds: medians a read round, and sums
+    a connection round."""
+    st, up, dec = (np.array(c, dtype=np.float64) for c in zip(*times))
+    return (f"{len(times)} read rounds ({len(times) / rounds:g} a connection round): a read "
+            f"round, median pinned staging {np.median(st):.3f} ms (host wall), upload "
+            f"{np.median(up):.3f} ms, decode step {np.median(dec):.3f} ms (CUDA events); a "
+            f"connection round, staging {st.sum() / rounds:.3f}, upload "
+            f"{up.sum() / rounds:.3f}, decode {dec.sum() / rounds:.3f} ms")
+
+
+def plain_server(blob: bytes, request: int):
+    """A plain socket server in a thread: reads one ``request``-byte request,
+    sends ``blob`` (made before), closes. Returns (port, thread)."""
+    srv = socket.create_server(("127.0.0.1", 0))
+    srv.settimeout(60)
+
+    def serve():
+        with srv:
+            conn, _ = srv.accept()
+            with conn:
+                got = 0
+                while got < request:
+                    data = conn.recv(1 << 16)
+                    if not data:
+                        break
+                    got += len(data)
+                conn.sendall(blob)
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    return srv.getsockname()[1], th
+
+
+async def protocol_rounds(dev, parties, db, plain, data_share, card: str):
+    """The client-facing checks of the protocol phase, against participant
+    processes ``parties``; returns the timings as (seconds, how taken) and
+    the coordinator's per-read-round times of the served queries."""
+    pat, msk, planted, dup, qpat, qmsk = db
+    bb = N_PLANTED
+    queries = [Template(Bits(a), Bits(m)) for a, m in zip(qpat[:bb], qmsk[:bb])]
+    want = [(r.index, r.distance) for r in plain.match(qpat[:bb], qmsk[:bb])]
+    masks = MasksEngine(msk, device=dev)
+    n = masks.count
+    times = {}
+
+    def addrs(wire):
+        return [("127.0.0.1", p["ports"][wire]) for p in parties]
+
+    def coordinator(wire, **kw):
+        return Coordinator(masks, addrs(wire), strict_scan=True, round_timeout=ROUND_TIMEOUT_S,
+                           device=dev, **kw)
+
+    def won(outcomes):
+        return [(o.index, o.distance) for o in outcomes]
+
+    async def clients(host, port, ts):
+        return await asyncio.gather(*[query_remote(host, port, t) for t in ts])
+
+    async def timed(fn):
+        lat, out = [], None
+        for _ in range(PROTOCOL_REPS):
+            t0 = time.perf_counter()
+            out = await fn()
+            lat.append(time.perf_counter() - t0)
+        return out, (float(np.median(lat)), f"median of {PROTOCOL_REPS}")
+
+    # 0. the wire alone: drain the parties' B = 8 replies with a plain asyncio
+    # reader (no coordinator work): one party, then all three at once
+    payload = batched_query_bytes(qpat[:bb], qmsk[:bb])
+
+    async def drain(port):
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        writer.write(payload)
+        await writer.drain()
+        got = 0
+        while chunk := await reader.read(1 << 20):
+            got += len(chunk)
+        writer.close()
+        await writer.wait_closed()
+        return got
+
+    for label, ports in (("1 party", [parties[-1]["ports"]["batched"]]),
+                         ("3 parties at once", [p["ports"]["batched"] for p in parties])):
+        t0 = time.perf_counter()
+        got = await asyncio.gather(*[drain(p) for p in ports])
+        times[f"raw reply drain, {label}, B=8"] = (time.perf_counter() - t0, "one run")
+        check(got == [n * bb * 62] * len(ports), f"protocol: raw drain of {label}: every byte")
+    # the same reader against a plain socket thread whose reply bytes are made
+    # before: what the reader alone can take
+    plain_port, th = plain_server(bytes(n * bb * 62), len(payload))
+    t0 = time.perf_counter()
+    got = await drain(plain_port)
+    times["raw reply drain, a plain socket thread of this process, B=8"] = (
+        time.perf_counter() - t0, "one run")
+    th.join(timeout=60)
+    check(got == n * bb * 62, "protocol: raw drain of the plain server: every byte")
+
+    # 1. eight concurrent clients, micro-batched into batched-wire rounds
+    coord = coordinator("batched")
+    sizes, inner = [], coord.query_batch
+
+    async def counted(ts):
+        sizes.append(len(ts))
+        return await inner(ts)
+
+    coord.query_batch = counted
+    coord.round_times = []
+    server = QueryServer(coord, "127.0.0.1", 0, max_batch=bb, batch_window=0.5)
+    host, port = await server.start()
+    try:
+        outs, times["batched B=8"] = await timed(lambda: clients(host, port, queries))
+    finally:
+        await server.close()
+    rounds = {"batched B=8": served_round_ms(coord.round_times, len(sizes))}
+    check(won(outs) == want, "protocol: 8 micro-batched clients' winners equal "
+          "PlaintextEngine.match and the in-process MPC query")
+    check(all(o.total == n for o in outs), "protocol: the whole DB scanned")
+    check([o.index for o in outs] == list(planted[:bb]) and not any(d for _, d in want),
+          "protocol: planted self-matches at 0.0, the duplicate at its lower index")
+    print(f"protocol: {len(sizes)} rounds of B = {sizes} for {PROTOCOL_REPS} x {bb} "
+          f"concurrent clients (QueryServer max_batch={bb}, batched wire)")
+
+    # 2-4. the reference wire: one client, the audit service, a persistent client
+    coord = coordinator("reference")
+    server = QueryServer(coord, "127.0.0.1", 0)
+    audit = QueryServer(coord, "127.0.0.1", 0, audit=True)
+    host, port = await server.start()
+    a_host, a_port = await audit.start()
+    try:
+        coord.round_times = []
+        one, times["reference B=1"] = await timed(lambda: query_remote(host, port, queries[0]))
+        rounds["reference B=1"] = served_round_ms(coord.round_times, PROTOCOL_REPS)
+        coord.round_times = None
+        under = await query_remote_under(a_host, a_port, queries[0], AUDIT_THRESHOLD)
+        client = await PersistentQueryClient.connect(host, port)
+        try:
+            persist = [await client.query(t) for t in queries[:3]]
+        finally:
+            await client.close()
+    finally:
+        await server.close()
+        await audit.close()
+    check(won([one]) == want[:1], "protocol: the reference-wire query's winner")
+    plain_under = [(m.index, m.distance)
+                   for m in plain.find_under(qpat[:1], qmsk[:1], AUDIT_THRESHOLD)[0]]
+    check([(m.index, m.distance) for m in under.matches] == plain_under and under.total == n,
+          f"protocol: query_remote_under t={AUDIT_THRESHOLD} equals find_under")
+    check(plain_under[:2] == [(int(planted[0]), 0.0), (dup, 0.0)],
+          "protocol: the audit lists the planted entry and its duplicate")
+    check(won(persist) == want[:3], "protocol: PersistentQueryClient's 3 records")
+    print(f"protocol: reference wire B=1 winner, audit t={AUDIT_THRESHOLD} list "
+          f"({len(under.matches)} hits) equal to find_under, 3 persistent records equal")
+
+    # 5. the chain: the coordinator holds the data share, the keyed parties chain
+    local = ShareEngine(data_share, device=dev)
+    chain = Coordinator(masks, [("127.0.0.1", p["ports"]["chain"]) for p in parties[:-1]],
+                        local_engine=local, chain=True, strict_scan=True,
+                        round_timeout=ROUND_TIMEOUT_S, device=dev)
+    chain.round_times = []
+    outs, times["chain B=8"] = await timed(lambda: chain.query_batch(queries))
+    rounds["chain B=8"] = served_round_ms(chain.round_times, PROTOCOL_REPS)
+    check(won(outs) == want, "protocol: the chain round's winners")
+    del local, chain
+
+    # 6. two micro-batched rounds in flight
+    coord = coordinator("batched")
+    inflight, peak, inner2 = [0], [0], coord.query_batch
+
+    async def tracked(ts):
+        inflight[0] += 1
+        peak[0] = max(peak[0], inflight[0])
+        try:
+            return await inner2(ts)
+        finally:
+            inflight[0] -= 1
+
+    coord.query_batch = tracked
+    server = QueryServer(coord, "127.0.0.1", 0, max_batch=bb // 2, batch_window=0.5,
+                         rounds_inflight=2)
+    host, port = await server.start()
+    try:
+        t0 = time.perf_counter()
+        outs = await clients(host, port, queries)
+        times["2 rounds in flight, B=4 each"] = (time.perf_counter() - t0, "one run")
+    finally:
+        await server.close()
+    check(peak[0] == 2 and won(outs) == want,
+          "protocol: two rounds in flight, each bit-equal to the solo rounds")
+    return times, rounds
+
+
+def protocol_phase(dev, seed: int, db, data_share, mpc_win, mpc_ms, card: str) -> int:
+    """The serving roles on the card: the 3-party MPC query of ``mpc_phase``
+    (262,144 entries; parties 0 and 1 keyed, half their chunks resident,
+    party 2 the data share) with each participant in its own process, on
+    card ``p % device_count``, serving its engine on the reference, batched
+    and chain wires; the Coordinator and QueryServer in this process with a
+    MasksEngine on ``dev``. Every winner must equal PlaintextEngine.match and
+    the in-process MPC query, the audit list find_under. Returns kernel (d)'s
+    launches in the keyed participants while they served."""
+    pat, msk = db[:2]
+    n = pat.shape[0]
+    devices = party_devices()
+    half = 2 * BITS * DEFAULT_CHUNK * (-(-n // DEFAULT_CHUNK) // 2)
+    plain = PlaintextEngine(pat, msk, device=dev, storage="packed")
+    bb = N_PLANTED
+    check(mpc_win[2].tolist() == [r.index for r in plain.match(db[4][:bb], db[5][:bb])],
+          "protocol: the in-process MPC query's winners are the reference here")
+    t0 = time.perf_counter()
+    parties = start_parties(n, seed, SHARE_KEY, devices, hbm_budget=half,
+                            timeout=PARTIES_START_S)
+    start_s = time.perf_counter() - t0
+    try:
+        times, rounds = asyncio.run(protocol_rounds(dev, parties, db, plain, data_share, card))
+    finally:
+        reports = stop_parties(parties, timeout=PARTIES_STOP_S)
+    launches = [r["share_planes_kernel"] for r in reports]
+    print(f"launches in the protocol run (participant processes): "
+          f"{json.dumps({'share_planes_kernel': launches})}")
+    check(all(k > 0 for k in launches[:2]),
+          "protocol: every keyed participant process launched kernel (d)")
+    print(f"protocol: participants {[p['pid'] for p in parties]} on "
+          f"{[str(d) for d in devices]} started (engines built, resident "
+          f"{[p['resident'] for p in parties]}) in {start_s:.1f} s and stopped by PID")
+    for name, (t, how) in times.items():
+        print(f"time protocol {name} N={n}: {t * 1e3:.3f} ms client-seen ({how}, host wall; "
+              f"participants in their own processes, TCP on localhost) [{card}]")
+    print(f"time in-process mpc query N={n} B={bb} (the same parties one after another in "
+          f"one process, no socket): {mpc_ms:.3f} ms [{card}]")
+    for s, r in enumerate(reports):
+        served = {w: (st["served"], round(st["p50_s"] * 1e3, 3)) for w, st in r["stats"].items()}
+        print(f"  participant {s} (served, p50 ms) by wire: {served} [{card}]")
+    print(f"reply bytes per party: {n * bb * 62} per B={bb} round ({n} entries x {bb} x 62), "
+          f"{n * 62} per B=1 round")
+    for name, line in rounds.items():
+        print(f"coordinator rounds, served {name}: {line} [{card}]")
+    return sum(launches)
+
+
 def party_phase(dev, seed: int, card: str) -> None:
-    """A party of several processes: on one card 2 ranks of 2 shards over
-    gloo (NCCL refuses two ranks on one card); with several cards one rank
-    per card, up to D, over NCCL. Each rank's non-local rows are poisoned;
-    the B = 8 match over the packed DB, a B = 1 spectrum, a share engine's
-    dots and a keyed checksum must equal the single-card engines' on the
-    clean data."""
+    """Parties of several processes. First, on one card 2 ranks of 2 shards
+    over gloo (NCCL refuses two ranks on one card); with several cards one
+    rank per card, up to D, over NCCL. Then 4 ranks of one device each on a
+    (2, 2) mesh, whose "db" rows span two ranks (NCCL with 4 cards, else
+    gloo on the cards there are), over a quarter of the packed DB. Each
+    rank's non-local rows are poisoned; the B = 8 match, a spectrum of the
+    first ``mesh_batch`` queries, the find_under lists at the audit
+    threshold, a share engine's dots and a keyed checksum must equal the
+    single-card engines' on the clean data."""
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= 2 else "gloo"
     procs = min(cards, SHARDS) if backend == "nccl" else 2
-    t0 = time.perf_counter()
-    out = run_party(procs=procs, backend=backend, device=str(dev), n=PACKED_DB,
-                    n_share=PARTY_SHARE_DB, chunk=DEFAULT_CHUNK, batch=N_PLANTED, seed=seed,
-                    shards_per_rank=SHARDS // procs, timeout=PARTY_TIMEOUT)
-    party_s = time.perf_counter() - t0
-    pat, msk, share = make_data(seed, PACKED_DB, PARTY_SHARE_DB)
-    q = query_rows(PACKED_DB, N_PLANTED)
-    single = PlaintextEngine(pat, msk, device=dev)
-    res = single.match(pat[q], msk[q])
-    check(out["winners"] == [[r.index, r.numerator, r.denominator] for r in res]
-          and [r.index for r in res] == q.tolist(),
-          f"{procs}-process party B=8: winners equal the single-card engine's, self-matches found")
-    check(out["spectrum_sha256"] == dots_digest(single.min_fractions(pat[q[:1]], msk[q[:1]])),
-          f"{procs}-process party: B=1 spectrum equals the single-card engine's")
-    check(out["dots_sha256"] == dots_digest(ShareEngine(share, device=dev).dots(pat[q], msk[q])),
-          f"{procs}-process party: share dots equal the single-card ShareEngine's on the "
-          "clean share")
-    keyed = KeyedShareEngine(KEY, 0, PACKED_DB, device=dev, hbm_budget=0)
-    check(out["keyed_checksum"] == int(keyed.fold_pass_fn()(planes(pat[q], msk[q], dev)[0])),
-          f"{procs}-process party: keyed checksum equals the single-card engine's")
-    p_ms = wall_ms(lambda: single.match(pat[q], msk[q]), 3)
-    print(f"{procs}-process party: backend {out['backend']}, {out['procs']} ranks x "
-          f"{out['shards'] // out['procs']} shards on {out['devices']}, rank 0 loaded "
-          f"{out['local_rows']} of {PACKED_DB} rows (the rest poisoned); match B={N_PLANTED}, "
-          f"B=1 spectrum, share dots ({PARTY_SHARE_DB} rows) and keyed checksum equal the "
-          f"single-card engines'; match {out['match_ms']:.3f} ms (rank 0, median of 3), "
-          f"single-card {p_ms:.3f} ms; the party's run took {party_s:.1f} s [{card}]")
+    for procs, backend, per_rank, mesh_batch, n in (
+            (procs, backend, SHARDS // procs, 1, PACKED_DB),
+            (4, "nccl" if cards >= 4 else "gloo", 1, 2, PACKED_DB // 4)):
+        t0 = time.perf_counter()
+        out = run_party(procs=procs, backend=backend, device=str(dev), n=n,
+                        n_share=PARTY_SHARE_DB, chunk=DEFAULT_CHUNK, batch=N_PLANTED, seed=seed,
+                        shards_per_rank=per_rank, mesh_batch=mesh_batch,
+                        threshold=AUDIT_THRESHOLD, timeout=PARTY_TIMEOUT)
+        party_s = time.perf_counter() - t0
+        pat, msk, share = make_data(seed, n, PARTY_SHARE_DB)
+        q = query_rows(n, N_PLANTED)
+        single = PlaintextEngine(pat, msk, device=dev)
+        res = single.match(pat[q], msk[q])
+        what = f"{procs}-process party on a {tuple(out['mesh'])} mesh"
+        check(out["winners"] == [[r.index, r.numerator, r.denominator] for r in res]
+              and [r.index for r in res] == q.tolist(),
+              f"{what} B=8: winners equal the single-card engine's, self-matches found")
+        qs = q[:mesh_batch]
+        check(out["spectrum_sha256"] == dots_digest(single.min_fractions(pat[qs], msk[qs])),
+              f"{what}: B={mesh_batch} spectrum equals the single-card engine's")
+        check(out["under_sha256"] == under_digest(single.find_under(pat[q], msk[q],
+                                                                    AUDIT_THRESHOLD)),
+              f"{what}: find_under lists equal the single-card engine's")
+        check(out["dots_sha256"] == dots_digest(ShareEngine(share, device=dev).dots(pat[q],
+                                                                                   msk[q])),
+              f"{what}: share dots equal the single-card ShareEngine's on the clean share")
+        keyed = KeyedShareEngine(KEY, 0, n, device=dev, hbm_budget=0)
+        check(out["keyed_checksum"] == int(keyed.fold_pass_fn()(planes(pat[q], msk[q], dev)[0])),
+              f"{what}: keyed checksum equals the single-card engine's")
+        p_ms = wall_ms(lambda: single.match(pat[q], msk[q]), 3)
+        print(f"{what}: backend {out['backend']}, {out['procs']} ranks on {out['devices']}, "
+              f"rank 0 loaded {out['local_rows']} of {n} rows (the rest poisoned); match "
+              f"B={N_PLANTED}, B={mesh_batch} spectrum, find_under ({out['under_hits']} hits), "
+              f"share dots ({PARTY_SHARE_DB} rows) and keyed checksum equal the single-card "
+              f"engines'; match {out['match_ms']:.3f} ms (rank 0, median of 3), single-card "
+              f"{p_ms:.3f} ms; the party's run took {party_s:.1f} s [{card}]")
+        del single, keyed
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -742,7 +1012,9 @@ def main() -> int:
     xpair = cross_shard_pair(PACKED_DB, effective_chunk(DEFAULT_CHUNK, PACKED_DB, SHARDS, "cuda"),
                              [*planted, dup])
     pat[xpair[1]], msk[xpair[1]] = pat[xpair[0]], msk[xpair[0]]
-    dpat, dmsk, dplanted, ddup, dqpat, dqmsk = make_db(rng, DENSE_DB)
+    # the dense DB from its own generator: the protocol phase's participant
+    # processes draw it again from the seed
+    dpat, dmsk, dplanted, ddup, dqpat, dqmsk = make_db(db_rng(args.seed), DENSE_DB)
     print(f"data: packed DB {PACKED_DB} entries, dense DB {DENSE_DB} entries, "
           f"seed {args.seed}, made in {time.perf_counter() - t0:.1f} s")
 
@@ -1013,14 +1285,20 @@ def main() -> int:
     sharded["share_planes_kernel"] = sharded_keyed_phase(dev, qpat, qmsk, KEYED_DB, card)
     sharded["share_planes_kernel"] += sharded_mpc_phase(dev, dmsk, data_share, dqpat, dqmsk,
                                                         mpc_win, mpc_ms, card)
-    del packed, data_share, args4
+    del packed, args4
+    torch.cuda.empty_cache()
+    served = protocol_phase(dev, args.seed, (dpat, dmsk, dplanted, ddup, dqpat, dqmsk),
+                            data_share, mpc_win, mpc_ms, card)
+    del data_share
     torch.cuda.empty_cache()
     party_phase(dev, args.seed, card)
     print(f"launches in the sharded paths: {json.dumps(sharded)}")
     check(all(v > 0 for v in sharded.values()), "every kernel launched on the sharded paths")
-    for k in kernels:  # the main paths' launches: single-card and sharded
+    for k in kernels:  # the main paths' launches: single-card, sharded, served
         k["launches"] += sharded[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], shard_err.get(k["name"], 0))
+        if k["name"] == "share_planes_kernel":
+            k["launches"] += served
 
     check("jax" not in sys.modules, "no jax imported")
     ref = sorted(m for m in sys.modules if m == "mpc_iris_tpu" or m.startswith("mpc_iris_tpu."))

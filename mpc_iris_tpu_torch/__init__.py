@@ -1,6 +1,6 @@
 """mpc_iris_tpu_torch — the plaintext match, threshold-audit, MPC
-participant and sharded paths of ``mpc_iris_tpu`` on PyTorch and CUDA
-(NVIDIA Hopper, sm_90a).
+participant, sharded and serving paths of ``mpc_iris_tpu`` on PyTorch and
+CUDA (NVIDIA Hopper, sm_90a).
 
 The JAX package ``mpc_iris_tpu`` is the reference; this package mirrors its
 layout and names so each function has an obvious counterpart:
@@ -18,14 +18,20 @@ layout and names so each function has an obvious counterpart:
                 (``match``, ``distances``, ``min_fractions``,
                 ``find_under``); the MPC engines ``ShareEngine``,
                 ``KeyedShareEngine`` and ``MasksEngine``
-- ``protocol``  the coordinator's share-sum-and-decode steps
+- ``protocol``  the MPC serving roles over TCP: ``ParticipantServer``,
+                ``Coordinator`` (rounds uploaded from pinned memory and
+                decoded on its device), ``QueryServer`` and its clients,
+                the reference, batched and chain wires, TLS and key
+                agreement; ``party_proc`` runs participants in processes
+                of their own
 - ``parallel``  the sharded engines over a mesh of devices (a device may
                 hold several shards), the exact cross-shard winner fold,
                 and a party of several processes (``torch.distributed``)
 
 It imports ``torch`` and nothing of ``jax`` or of the JAX package: what it
 needs of the JAX package's JAX-free modules is copied (``constants``,
-``types``).
+``types``, and ``protocol``'s ``wire``, ``pump``, ``drain``, ``keyagree``,
+``tlsutil`` and ``participant``).
 """
 
 from mpc_iris_tpu_torch.constants import (

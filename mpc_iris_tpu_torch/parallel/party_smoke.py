@@ -4,16 +4,19 @@ the sharded match and share dots with process-local loading.
 
 :func:`run_party` starts the ranks on localhost (each runs this module with
 its settings as one JSON argument) and returns rank 0's result. Each rank
-holds ``shards_per_rank`` shards and poisons every DB row outside its own
+puts ``shards_per_rank`` devices into a mesh of ``mesh_batch`` columns (so
+four one-card ranks with ``mesh_batch=2`` form a (2, 2) mesh whose "db" rows
+span two ranks each) and poisons every DB row outside its own
 ``multihost.local_entry_spans``, so an engine that read another rank's row
 would return wrong winners or dots. Rank 0 reports the
-``ShardedPlaintextEngine.match`` winners of the queries :func:`query_rows`
-picks (self-matches of DB rows) and the sha256 of the
-``ShardedShareEngine.dots`` bytes, of a B = 1 ``min_fractions`` spectrum,
-and a ``ShardedKeyedShareEngine`` fold-pass checksum over ``n`` rows of
-share stream 0 under :data:`KEY` (``n`` a multiple of the shards times the
-chunk); a caller holds them against the single-card engines on the clean
-data of :func:`make_data`.
+``ShardedPlaintextEngine.match`` winners of the queries
+``smoke_data.query_rows`` picks (self-matches of DB rows); the sha256 of a
+``min_fractions`` spectrum of the first ``mesh_batch`` queries, of the
+``find_under`` lists at ``threshold`` (:func:`under_digest`) and of the
+``ShardedShareEngine.dots`` bytes; and a ``ShardedKeyedShareEngine`` fold-pass checksum over ``n`` rows
+of share stream 0 under :data:`KEY` (``n`` a multiple of the shards times
+the chunk). A caller holds them against the single-card engines on the
+clean data of ``smoke_data.make_data``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES
 from mpc_iris_tpu_torch.parallel import multihost
 from mpc_iris_tpu_torch.parallel.mesh import make_mesh
 from mpc_iris_tpu_torch.parallel.sharded import (
@@ -40,28 +42,19 @@ from mpc_iris_tpu_torch.parallel.sharded import (
     ShardedPlaintextEngine,
     ShardedShareEngine,
 )
+from mpc_iris_tpu_torch.smoke_data import make_data, query_rows
 
 KEY = bytes(range(32))  # the keyed party's share key
 
 
-def make_data(seed: int, n: int, n_share: int):
-    """The party's data from ``seed``: packed patterns and masks uint8
-    [n, 1600] and one share uint16 [n_share, 12800] (writable copies)."""
-    rng = np.random.default_rng(seed)
-    pat = np.frombuffer(rng.bytes(n * BITS_BYTES), np.uint8).reshape(n, BITS_BYTES).copy()
-    msk = np.frombuffer(rng.bytes(n * BITS_BYTES), np.uint8).reshape(n, BITS_BYTES).copy()
-    share = np.frombuffer(rng.bytes(n_share * BITS * 2), np.uint16).reshape(n_share, BITS).copy()
-    return pat, msk, share
-
-
-def query_rows(n: int, b: int) -> np.ndarray:
-    """The DB rows whose copies are the queries: spread over the DB, so
-    every shard holds some."""
-    return np.linspace(0, n - 1, b).astype(np.int64)
-
-
 def dots_digest(dots: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(dots, dtype=np.uint16).tobytes()).hexdigest()
+
+
+def under_digest(lists) -> str:
+    """sha256 of ``find_under`` lists as (index, numerator, denominator)."""
+    return hashlib.sha256(json.dumps([[[m.index, m.numerator, m.denominator] for m in row]
+                                      for row in lists]).encode()).hexdigest()
 
 
 def _device_of(rank: int, backend: str, device: str) -> torch.device:
@@ -90,7 +83,8 @@ def worker(args) -> None:
         info = multihost.party_info()
         if info["process_count"] != args.procs:
             raise RuntimeError(f"party_info: {info}")
-        mesh = make_mesh(db=args.procs * args.shards_per_rank, devices=[
+        mesh = make_mesh(db=args.procs * args.shards_per_rank // args.mesh_batch,
+                         batch=args.mesh_batch, devices=[
             (r, _device_of(r, args.backend, args.device))
             for r in range(args.procs) for _ in range(args.shards_per_rank)])
         pat, msk, share = make_data(args.seed, args.n, args.n_share)
@@ -106,7 +100,9 @@ def worker(args) -> None:
             t0 = time.perf_counter()
             eng.match(qpat, qmsk)
             times.append((time.perf_counter() - t0) * 1e3)
-        spectrum = eng.min_fractions(qpat[:1], qmsk[:1])
+        nb = args.mesh_batch  # the smallest batch the mesh's columns divide
+        spectrum = eng.min_fractions(qpat[:nb], qmsk[:nb])
+        under = eng.find_under(qpat, qmsk, args.threshold)
         del eng
         dots = ShardedShareEngine(share, mesh, chunk=args.chunk).dots(qpat, qmsk)
         keyed = ShardedKeyedShareEngine(KEY, 0, args.n, mesh, chunk=args.chunk)
@@ -114,11 +110,12 @@ def worker(args) -> None:
         if args.rank == 0:
             print(json.dumps({
                 "backend": dist.get_backend(), "procs": args.procs,
-                "shards": mesh.shape["db"], "devices": [str(d) for d in mesh.devices.flat],
+                "shards": mesh.shape["db"], "mesh": list(mesh.devices.shape), "devices": [str(d) for d in mesh.devices.flat],
                 "local_rows": int(sum(e - s for s, e in multihost.local_entry_spans(
                     args.n, args.chunk, mesh))),
                 "winners": [[r.index, r.numerator, r.denominator] for r in results],
                 "dots_sha256": dots_digest(dots), "spectrum_sha256": dots_digest(spectrum),
+                "under_sha256": under_digest(under), "under_hits": sum(map(len, under)),
                 "keyed_checksum": int(checksum), "match_ms": float(np.median(times))}))
     finally:
         dist.destroy_process_group()
@@ -132,13 +129,15 @@ def _free_port() -> int:
 
 def run_party(procs: int = 2, backend: str = "gloo", device: str = "cpu", n: int = 64,
               n_share: int = 64, chunk: int = 8, batch: int = 2, seed: int = 7,
-              shards_per_rank: int = 2, timeout: float = 120.0) -> dict:
+              shards_per_rank: int = 2, mesh_batch: int = 1, threshold: float = 0.375,
+              timeout: float = 120.0) -> dict:
     """Start ``procs`` rank processes on localhost and return rank 0's JSON.
     Raises with the ranks' errors if any rank fails; kills every rank on
     the timeout."""
     settings = dict(procs=procs, port=_free_port(), backend=backend, device=device, n=n,
                     n_share=n_share, chunk=chunk, batch=batch, seed=seed,
-                    shards_per_rank=shards_per_rank)
+                    shards_per_rank=shards_per_rank, mesh_batch=mesh_batch,
+                    threshold=threshold)
     env = dict(os.environ)
     root = str(Path(__file__).resolve().parents[2])
     env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))

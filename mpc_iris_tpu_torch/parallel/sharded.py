@@ -27,9 +27,16 @@ divide by the batch axis); the global winner is combined with
 the whole batch on each shard's first device, as the reference replicates
 their queries over ``"batch"``.
 
-In a party of several processes, each process loads and computes only the
-shards of its own contiguous range of the ``"db"`` axis, and reply blocks,
-spectra, winners and checksums are exchanged over the party's process group.
+In a party of several processes, each process loads the DB rows its own
+devices sit on (a contiguous range of the ``"db"`` axis; a row may span
+processes, as a (2, 2) mesh of four one-card ranks does). The plaintext
+engine computes every mesh entry (db row i, batch column j) on the process
+that owns its device; the MPC engines compute shard i on the owner of its
+home device ``devices[i, 0]`` only. Every result is joined over the party's
+process group with each piece taken from its one owner, so no shard counts
+twice: winners fold with :func:`~.collectives.fraction_allmin`, spectra and
+reply blocks are gathered slot by slot (``_ShardedBase._gather_slots``), and
+checksums add.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mpc_iris_tpu_torch.constants import BITS
+from mpc_iris_tpu_torch.constants import BITS, N_ROTATIONS
 from mpc_iris_tpu_torch.models.engines import (
     DEFAULT_CHUNK,
     _compact_under_device,
@@ -65,6 +72,7 @@ from mpc_iris_tpu_torch.models.engines import (
     prepare_query_planes,
 )
 from mpc_iris_tpu_torch.ops.chacha import check_stream_id, key_tensor
+from mpc_iris_tpu_torch.ops.decode import INDEX_PAD
 from mpc_iris_tpu_torch.ops.encode import unpack_bits
 from mpc_iris_tpu_torch.ops.self_test import kernel_self_test
 from mpc_iris_tpu_torch.parallel.collectives import all_gather_cat, fraction_allmin
@@ -88,22 +96,13 @@ def effective_chunk(chunk: int, total_rows: int, n_shards: int,
 
 
 def local_db_span(mesh) -> tuple[int, int]:
-    """Contiguous [lo, hi) range of the mesh's ``"db"`` axis whose devices
-    this process owns. Each process loads ONLY the DB rows its own shards
-    serve, which needs the ``"db"`` axis grouped by process (as
-    ``make_mesh`` builds it); raises otherwise, since a process-interleaved
-    axis has no contiguous local slab.
-
-    Each ``"db"`` row must belong to ONE process: the party's results are
-    joined from every rank's shards in rank order, so a shard served by two
-    ranks would appear twice. Raises on a row that spans processes (4 ranks
-    of one card on a (2, 2) mesh, say); such a party uses ``batch=1``, or
-    gives each rank a whole row of cards. (The reference gathers such
-    meshes to a replicated layout; the port does not support them.)"""
-    split = [i for i in range(mesh.ranks.shape[0]) if len(set(mesh.ranks[i].tolist())) > 1]
-    if split:
-        raise ValueError(f"mesh 'db' rows {split} span several processes; give each "
-                         "row's devices to one rank (batch=1 with one card a rank)")
+    """Contiguous [lo, hi) range of the mesh's ``"db"`` axis on which this
+    process owns a device (the reference's rule). Each process loads ONLY
+    the DB rows its own devices serve, which needs the ``"db"`` axis grouped
+    by process (as ``make_mesh`` builds it); raises otherwise, since a
+    process-interleaved axis has no contiguous local slab. A row may span
+    processes (4 ranks of one card on a (2, 2) mesh): each of its ranks
+    loads it."""
     mine = [i for i in range(mesh.ranks.shape[0])
             if (mesh.ranks[i] == mesh.process_index).any()]
     if not mine:
@@ -136,9 +135,15 @@ class _ShardedBase:
         # the party's group when it has several processes, else no collective
         self._group = dist.group.WORLD if mesh.process_count > 1 else None
         lo, hi = self.db_span
-        self._shards = range(lo, hi)  # the global shard indices this process serves
-        self.device = mesh.devices[lo, 0]  # where results are gathered
-        for dev in dict.fromkeys(mesh.devices[lo:hi].flat):
+        pid = mesh.process_index
+        # the mesh entries (db row, batch column) on this process's devices
+        self._entries = [(i, j) for i in range(lo, hi) for j in range(mesh.shape["batch"])
+                         if mesh.ranks[i, j] == pid]
+        # the shards whose home device (first of the row) is this process's:
+        # the MPC engines compute these, and only these
+        self._shards = [i for i in range(lo, hi) if mesh.ranks[i, 0] == pid]
+        self.device = mesh.devices[self._entries[0]]  # where results are gathered
+        for dev in dict.fromkeys(mesh.devices[e] for e in self._entries):
             kernel_self_test(dev)
 
     def _home(self, i: int) -> torch.device:
@@ -156,10 +161,10 @@ class _ShardedBase:
         return {dev: t.to(dev) for dev in dict.fromkeys(devices)}
 
     def _block_rows(self, j: int, src, n: int) -> np.ndarray:
-        """Block j's rows of this process's shards: ONE contiguous source
-        slice (a shared memmap never pages in other processes' rows),
-        zero-padded, as [hi-lo, chunk, W]."""
-        lo, hi = self.db_span
+        """Block j's rows of this process's (MPC) shards: ONE contiguous
+        source slice (a shared memmap never pages in other processes' rows),
+        zero-padded, as [hi-lo, chunk, W] from the first shard lo."""
+        lo, hi = self._shards[0], self._shards[-1] + 1
         span_rows = (hi - lo) * self.chunk
         start = (j * self.n_shards + lo) * self.chunk
         end = min(n, start + span_rows)
@@ -168,14 +173,26 @@ class _ShardedBase:
             rows = np.pad(rows, [(0, span_rows - rows.shape[0]), (0, 0)])
         return rows.reshape(hi - lo, self.chunk, rows.shape[1])
 
-    def _fetchable(self, local: torch.Tensor, axis: int) -> torch.Tensor:
-        """Make a result whole on THIS process. Single process: no-op. Several:
-        every rank's piece, concatenated along ``axis`` in rank order (a reply
-        block leaves the party through one process's socket, so it must see
-        the whole block)."""
+    def _gather_slots(self, pieces: dict, owners: dict, shape, dtype) -> dict:
+        """Every slot of a result, whole on THIS process (a reply block leaves
+        the party through one process's socket, so it must see the whole
+        block). ``owners`` maps each slot to the ONE rank that computes it;
+        ``pieces`` holds this process's slots, tensors of ``shape`` and
+        ``dtype``. Single process: ``pieces``. Several: each rank sends its
+        own slots, padded to the most any rank owns, in one all-gather, and
+        every slot is taken from its owner only, so no shard counts twice."""
         if self._group is None:
-            return local
-        return all_gather_cat(local, axis, self._group)
+            return pieces
+        by_rank = {}
+        for slot, r in owners.items():
+            by_rank.setdefault(int(r), []).append(slot)
+        width = max(map(len, by_rank.values()))
+        buf = torch.zeros((width, *shape), dtype=dtype, device=self.device)
+        for k, slot in enumerate(by_rank.get(self.mesh.process_index, [])):
+            buf[k] = pieces[slot]
+        g = all_gather_cat(buf, 0, self._group)
+        return {slot: g[r * width + k] for r, slots in by_rank.items()
+                for k, slot in enumerate(slots)}
 
     def _q_transform(self, q_enc):
         """Hook: engines with a transformed DB K order override (keyed)."""
@@ -194,8 +211,8 @@ class ShardedPlaintextEngine(_ShardedBase):
         """storage: as in ``models.PlaintextEngine``: "packed" (the "auto"
         choice) keeps raw bit planes per shard (3.2 KB per entry) and unpacks
         per chunk on the device; "dense" keeps int8 encodings and masks.
-        Every device of mesh row i holds shard i's chunks, once per distinct
-        device."""
+        Each of this process's devices on mesh row i holds shard i's chunks,
+        once per distinct device."""
         n = patterns_packed.shape[0]
         chunk = effective_chunk(chunk, n, mesh.shape["db"], mesh.device_type)
         super().__init__(mesh, chunk)
@@ -208,20 +225,23 @@ class ShardedPlaintextEngine(_ShardedBase):
         self.g_blocks = max(1, -(-n // (chunk * self.n_shards)))
         pat_b = self._blocked_local(patterns_packed)
         msk_b = self._blocked_local(masks_packed)
-        # global shard i -> {device: (a, b)}: packed planes, or encodings and masks
+        # global shard i -> {device: (a, b)}: packed planes, or encodings and
+        # masks, on each of this process's devices of row i
+        lo = self.db_span[0]
         self._db = {}
-        for li, i in enumerate(self._shards):
-            per_dev = {}
-            for dev in dict.fromkeys(mesh.devices[i]):
-                a, b = torch.from_numpy(pat_b[li]).to(dev), torch.from_numpy(msk_b[li]).to(dev)
-                if storage == "dense":
-                    enc = torch.empty((a.shape[0], chunk, BITS), dtype=torch.int8, device=dev)
-                    mask = torch.empty_like(enc)
-                    for c in range(a.shape[0]):
-                        enc[c], mask[c] = _unpack_encode_chunk(a[c], b[c])
-                    a, b = enc, mask
-                per_dev[dev] = (a, b)
-            self._db[i] = per_dev
+        for i, j in self._entries:
+            dev = mesh.devices[i, j]
+            per_dev = self._db.setdefault(i, {})
+            if dev in per_dev:
+                continue
+            a, b = torch.from_numpy(pat_b[i - lo]).to(dev), torch.from_numpy(msk_b[i - lo]).to(dev)
+            if storage == "dense":
+                enc = torch.empty((a.shape[0], chunk, BITS), dtype=torch.int8, device=dev)
+                mask = torch.empty_like(enc)
+                for c in range(a.shape[0]):
+                    enc[c], mask[c] = _unpack_encode_chunk(a[c], b[c])
+                a, b = enc, mask
+            per_dev[dev] = (a, b)
 
     def _blocked_local(self, src) -> np.ndarray:
         """This process's shards' slabs, uint8 [hi-lo, G, chunk, 1600], read
@@ -244,35 +264,42 @@ class ShardedPlaintextEngine(_ShardedBase):
         return [(j, slice(j * bl, (j + 1) * bl)) for j in range(nb)]
 
     def _per_shard(self, q_enc, q_mask, fn):
-        """Run ``fn(q_enc, q_mask, a, b)`` for every (column, local shard)
-        on that mesh entry's device, with the column's queries and the
-        shard's slabs; yields (column, rows, shard, result).
-        Every column's queries reach every device first (``_spread``)."""
-        cols = self._columns(q_enc.shape[0])
-        local = self.mesh.devices[self._shards.start:self._shards.stop]
-        qs = {j: (self._spread(q_enc[rows], local[:, j]), self._spread(q_mask[rows], local[:, j]))
-              for j, rows in cols}
-        for j, rows in cols:
-            for i in self._shards:
-                dev = self.mesh.devices[i, j]
-                yield j, rows, i, fn(qs[j][0][dev], qs[j][1][dev], *self._db[i][dev])
+        """Run ``fn(q_enc, q_mask, a, b)`` for every mesh entry (shard i,
+        column j) of this process on its device, with the column's queries
+        and the shard's slabs; yields (column, rows, shard, result). Every
+        column's queries reach every device first (``_spread``)."""
+        rows_of = dict(self._columns(q_enc.shape[0]))
+        qs = {}
+        for j, rows in rows_of.items():
+            devs = [self.mesh.devices[i, jj] for i, jj in self._entries if jj == j]
+            qs[j] = (self._spread(q_enc[rows], devs), self._spread(q_mask[rows], devs))
+        for i, j in self._entries:
+            dev = self.mesh.devices[i, j]
+            yield j, rows_of[j], i, fn(qs[j][0][dev], qs[j][1][dev], *self._db[i][dev])
 
     def match_arrays(self, q_enc, q_mask) -> torch.Tensor:
         """Prepared query planes -> int32 [3, B] (numerator, denominator,
-        global DB index) on the engine's first device."""
+        global DB index) on the engine's first device: each column's winners
+        fold over this process's shards; in a party of several processes
+        they then fold over the ranks (a column a rank does not compute is
+        the invalid candidate there)."""
         c, d = self.chunk, self.n_shards
         scan = match_scan_packed_auto if self.storage == "packed" else match_scan_auto
-        lo = self.db_span[0]
         cols = {}
-        for j, _, i, (n_, d_, l) in self._per_shard(q_enc, q_mask, scan):
+        for j, rows, i, (n_, d_, l) in self._per_shard(q_enc, q_mask, scan):
             # local l = jc*c + p  ->  global (jc*D + i)*c + p, int32
             g = (l // c) * (d * c) + i * c + l % c
-            cols.setdefault(j, []).append((n_, d_, g))
-        out = []
-        for j, triples in sorted(cols.items()):
-            win = fraction_allmin(*zip(*triples), self.mesh.devices[lo, j], self._group)
-            out.append(torch.stack(win).to(self.device))
-        return torch.cat(out, dim=1)
+            cols.setdefault(j, (rows, []))[1].append((n_, d_, g))
+        folded = {j: (rows, torch.stack(fraction_allmin(*zip(*triples), self.device)))
+                  for j, (rows, triples) in cols.items()}
+        if self._group is None:  # every column is computed here
+            return torch.cat([folded[j][1] for j in sorted(folded)], dim=1)
+        win = torch.zeros((3, q_enc.shape[0]), dtype=torch.int32, device=self.device)
+        win[2] = INDEX_PAD
+        for rows, w in folded.values():
+            win[:, rows] = w
+        return torch.stack(fraction_allmin([win[0]], [win[1]], [win[2]], self.device,
+                                           self._group))
 
     def match(self, patterns_packed, masks_packed):
         n, d, i = self.match_arrays(*self._queries(patterns_packed, masks_packed)).cpu().numpy()
@@ -288,15 +315,21 @@ class ShardedPlaintextEngine(_ShardedBase):
 
     def _spectrum(self, q_enc, q_mask) -> torch.Tensor:
         """The fraction spectrum int16 [2, B, G*D*c] in GLOBAL entry order on
-        the first device: each shard's [2, B_col, G*c] is written into
-        [2, B, G, D, c] at its shard slot (one strided copy)."""
-        lo, hi = self.db_span
-        b, g, c = q_enc.shape[0], self.g_blocks, self.chunk
+        the first device: each mesh entry's [2, B_col, G*c] is written into
+        [2, B, G, D, c] at its (column rows, shard) slot (one strided copy),
+        taken from the rank that computed it."""
+        b, g, c, d = q_enc.shape[0], self.g_blocks, self.chunk, self.n_shards
+        cols = self._columns(b)
         scan = fractions_scan_packed_auto if self.storage == "packed" else _fractions_scan
-        out = torch.empty((2, b, g, hi - lo, c), dtype=torch.int16, device=self.device)
-        for _, rows, i, nd in self._per_shard(q_enc, q_mask, scan):
-            out[:, rows, :, i - lo] = nd.reshape(2, -1, g, c).to(self.device)
-        return self._fetchable(out, 3).reshape(2, b, -1)
+        pieces = {(j, i): nd.reshape(2, -1, g, c).to(self.device, torch.int16)
+                  for j, _, i, nd in self._per_shard(q_enc, q_mask, scan)}
+        owners = {(j, i): self.mesh.ranks[i, j] for j, _ in cols for i in range(d)}
+        pieces = self._gather_slots(pieces, owners, (2, b // len(cols), g, c), torch.int16)
+        out = torch.empty((2, b, g, d, c), dtype=torch.int16, device=self.device)
+        for j, rows in cols:
+            for i in range(d):
+                out[:, rows, :, i] = pieces[j, i]
+        return out.reshape(2, b, -1)
 
     def _host_spectrum(self, nd: torch.Tensor) -> np.ndarray:
         return nd[:, :, : self.count].cpu().numpy().astype(np.uint16)
@@ -345,26 +378,31 @@ class _BlockListEngine(_ShardedBase):
     def num_blocks(self) -> int:
         return len(self._blocks)
 
-    def _block(self, qs: dict, blk) -> torch.Tensor:
-        parts = [self._shard_dots(qs, blk, li, i).to(self.device)
-                 for li, i in enumerate(self._shards)]
-        return self._fetchable(torch.cat(parts, dim=1), 1)
+    def _block(self, qs: dict, blk, b: int) -> torch.Tensor:
+        """The D shards' replies [B, D*chunk, 31]: this process's shards
+        computed here, the others' taken from the owners of their home
+        devices."""
+        pieces = {i: self._shard_dots(qs, blk, li, i).to(self.device)
+                  for li, i in enumerate(self._shards)}
+        owners = {i: self.mesh.ranks[i, 0] for i in range(self.n_shards)}
+        parts = self._gather_slots(pieces, owners, (b, self.chunk, N_ROTATIONS), torch.int16)
+        return torch.cat([parts[i] for i in range(self.n_shards)], dim=1)
 
     def block(self, q_enc, j: int) -> torch.Tensor:
         """Global chunks j*D .. j*D+D-1 for prepared query planes: int16
         [B, D*chunk, 31] (u16 bit patterns) in DB order on the first
         device."""
-        return self._block(self._spread(q_enc), self._blocks[j])
+        return self._block(self._spread(q_enc), self._blocks[j], q_enc.shape[0])
 
-    def _stream(self, qs: dict, entry_major: bool):
+    def _stream(self, qs: dict, b: int, entry_major: bool):
         """Host uint16 blocks in DB order, trimmed ([B, n, 31] or
         entry-major [n, B, 31])."""
         blocks = self._blocks  # snapshot: refresh() swaps, never mutates
         step = self.chunk * self.n_shards
         if entry_major:
-            dispatch = lambda j: _to_entry_major(self._block(qs, blocks[j]))
+            dispatch = lambda j: _to_entry_major(self._block(qs, blocks[j], b))
         else:
-            dispatch = lambda j: self._block(qs, blocks[j])
+            dispatch = lambda j: self._block(qs, blocks[j], b)
         # the block count and the count are taken with the snapshot, so a
         # refresh racing this generator cannot index past it
         yield from pipelined_stream(dispatch, len(blocks), min(self.count, len(blocks) * step),
@@ -423,9 +461,12 @@ class ShardedShareEngine(_BlockListEngine):
         self._blocks = [self._load_block(j, shares_u16, n) for j in range(g_blocks)]
 
     def _load_block(self, j: int, src, n: int) -> list[torch.Tensor]:
+        if not self._shards:
+            return []
         local = self._block_rows(j, src, n).astype(np.uint16, copy=False)
-        return [_shares_reformat(torch.from_numpy(local[li].view(np.int16)).to(self._home(i)))
-                for li, i in enumerate(self._shards)]
+        lo = self._shards[0]
+        return [_shares_reformat(torch.from_numpy(local[i - lo].view(np.int16)).to(self._home(i)))
+                for i in self._shards]
 
     def _growth_note(self, n_new: int) -> str | None:
         fresh = effective_chunk(self._chunk_req, n_new, self.n_shards, self.mesh.device_type)
@@ -443,7 +484,8 @@ class ShardedShareEngine(_BlockListEngine):
         """Yield host uint16 blocks in DB order, trimmed ([B, n, 31] or
         entry-major [n, B, 31])."""
         q_enc = self._queries(patterns_packed, masks_packed)[0]
-        yield from self._stream(self._spread(self._q_transform(q_enc)), entry_major)
+        yield from self._stream(self._spread(self._q_transform(q_enc)), q_enc.shape[0],
+                                entry_major)
 
     def dots(self, patterns_packed, masks_packed) -> np.ndarray:
         return np.concatenate(list(self.stream(patterns_packed, masks_packed)), axis=1)
@@ -508,7 +550,8 @@ class ShardedKeyedShareEngine(_BlockListEngine):
                 for j in range(g_blocks):
                     acc.add_((self._shard_dots(qs, j, li, i).to(torch.int64) & 0xFFFF).sum())
                 parts.append(acc & _M32)
-            total = torch.stack([p.to(self.device) for p in parts]).sum() & _M32
+            total = sum((p.to(self.device) for p in parts),
+                        torch.zeros((), dtype=torch.int64, device=self.device)) & _M32
             if self._group is not None:
                 total = all_gather_cat(total[None], 0, self._group).sum() & _M32
             return np.uint32(int(total))
@@ -548,10 +591,13 @@ class ShardedMasksEngine(_BlockListEngine):
     def _load_block(self, j: int, src, n: int) -> list[torch.Tensor]:
         """Block j's local shards on their devices: packed uint8 [c, 1600],
         or unpacked there to int8 [c, 12800]."""
+        if not self._shards:
+            return []
         local = self._block_rows(j, src, n).astype(np.uint8, copy=False)
+        lo = self._shards[0]
         out = []
-        for li, i in enumerate(self._shards):
-            t = torch.from_numpy(local[li]).to(self._home(i))
+        for i in self._shards:
+            t = torch.from_numpy(local[i - lo]).to(self._home(i))
             out.append(t if self.storage == "packed" else unpack_bits(t).to(torch.int8))
         return out
 
@@ -569,7 +615,7 @@ class ShardedMasksEngine(_BlockListEngine):
     def stream(self, masks_packed, entry_major: bool = False):
         q = _put_u8(masks_packed, self.device)
         yield from self._stream(self._spread(prepare_query_planes(torch.zeros_like(q), q)[1]),
-                                entry_major)
+                                q.shape[0], entry_major)
 
     def dots(self, masks_packed) -> np.ndarray:
         return np.concatenate(list(self.stream(masks_packed)), axis=1)

@@ -13,7 +13,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from mpc_iris_tpu_torch.constants import BITS_BYTES, COLS, MAX_ROTATION, ROWS
+from mpc_iris_tpu_torch.constants import BITS_BYTES, COLS, MAX_ROTATION, ROWS, TEMPLATE_BYTES
 
 
 class Bits:
@@ -71,6 +71,16 @@ class Template:
 
     pattern: Bits = field(default_factory=Bits)
     mask: Bits = field(default_factory=Bits)
+
+    def to_bytes(self) -> bytes:
+        """3,200-byte wire form: pattern then mask (reference src/main.rs:419)."""
+        return self.pattern.data.tobytes() + self.mask.data.tobytes()
+
+    @classmethod
+    def from_bytes(cls, raw: bytes) -> "Template":
+        if len(raw) != TEMPLATE_BYTES:
+            raise ValueError(f"Template requires {TEMPLATE_BYTES} bytes, got {len(raw)}")
+        return cls(Bits(raw[:BITS_BYTES]), Bits(raw[BITS_BYTES:]))
 
     def rotated(self, amount: int) -> "Template":
         return Template(self.pattern.rotated(amount), self.mask.rotated(amount))

@@ -312,3 +312,47 @@ def test_sharded_engines_on_card_equal_single(cuda):
         np.testing.assert_array_equal(
             ShardedMasksEngine(msk, mesh, chunk=256, storage=storage).dots(msk[q[:3]]),
             MasksEngine(msk, device=cuda, chunk=256).dots(msk[q[:3]]))
+
+
+def test_coordinator_on_card_equals_cpu(cuda):
+    """The Coordinator's rounds, staged in pinned memory, uploaded without
+    waiting and decoded on the card, give the outcomes of the same rounds
+    decoded on the CPU: three parties on the card (two keyed, one data
+    share) over TCP, the reference and batched wires, argmin and audit."""
+    import asyncio
+
+    from mpc_iris_tpu_torch.protocol import Coordinator, ParticipantServer
+    from mpc_iris_tpu_torch.types import Bits, Template
+
+    rng = np.random.default_rng(61)
+    n = 300
+    pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    queries = [Template(Bits(pat[7]), Bits(msk[7])).rotated(3),
+               Template(Bits(pat[250]), Bits(msk[250])),
+               Template.random(rng)]
+    key = native.derive_insecure_key(5)
+    data = share_split_device(pat, msk, 3, key, device=cuda, shares=[2])[0]
+    parties = [KeyedShareEngine(key, 0, n, device=cuda, chunk=128),
+               KeyedShareEngine(key, 1, n, device=cuda, chunk=128, hbm_budget=0),
+               ShareEngine(data, device=cuda, chunk=128)]
+    masks = MasksEngine(msk, device=cuda, chunk=128)
+
+    async def go(dev, wire):
+        servers = [ParticipantServer(e, "127.0.0.1", 0, wire=wire) for e in parties]
+        addrs = [await s.start() for s in servers]
+        coord = Coordinator(masks, addrs, batch_records=100, strict_scan=True, device=dev)
+        try:
+            if wire == "reference":
+                return [await coord.query(queries[0]), await coord.query_under(queries[0], 0.45)]
+            return (await coord.query_batch(queries)
+                    + await coord.query_batch_under(queries, 0.45))
+        finally:
+            for s in servers:
+                await s.close()
+
+    for wire in ("reference", "batched"):
+        got = asyncio.run(go(cuda, wire))
+        assert repr(got) == repr(asyncio.run(go(torch.device("cpu"), wire)))
+        assert (got[0].index, got[0].distance, got[0].total) == (7, 0.0, n)
+    assert [o.index for o in got[:2]] == [7, 250]

@@ -402,9 +402,15 @@ def test_jax_roles_serve_port_engines():
 @pytest.mark.parametrize("module", ["mpc_iris_tpu_torch.ops.chacha",
                                     "mpc_iris_tpu_torch.models",
                                     "mpc_iris_tpu_torch.protocol",
-                                    "mpc_iris_tpu_torch.parallel"])
+                                    "mpc_iris_tpu_torch.parallel",
+                                    *(f"mpc_iris_tpu_torch.protocol.{m}" for m in (
+                                        "wire", "pump", "drain", "keyagree", "tlsutil",
+                                        "participant", "coordinator", "party_proc")),
+                                    "mpc_iris_tpu_torch.smoke_data"])
 def test_import_leaves_jax_out(module):
-    code = f"import sys, {module}; assert 'jax' not in sys.modules, 'jax imported'"
+    code = (f"import sys, {module}; assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert not [m for m in sys.modules if m.split('.')[0] == 'mpc_iris_tpu'], "
+            "'a module of the JAX package imported'")
     subprocess.run([sys.executable, "-c", code], check=True,
                    cwd=Path(__file__).resolve().parent.parent)
 

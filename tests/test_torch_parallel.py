@@ -22,6 +22,7 @@ from mpc_iris_tpu.parallel import make_mesh as jax_make_mesh
 from mpc_iris_tpu.parallel import mesh_shape_for as jax_mesh_shape_for
 from mpc_iris_tpu.parallel import multihost as jax_multihost
 from mpc_iris_tpu.parallel.sharded import effective_chunk as jax_effective_chunk
+from mpc_iris_tpu.parallel.sharded import local_db_span as jax_local_db_span
 from mpc_iris_tpu.ops.encode import encode_template
 from mpc_iris_tpu.ops.select_pallas import fold_candidates as jax_fold_candidates
 from mpc_iris_tpu.types import EncodedBits, Template
@@ -41,14 +42,9 @@ from mpc_iris_tpu_torch.parallel import (
     multihost,
 )
 from mpc_iris_tpu_torch.parallel.mesh import Mesh
-from mpc_iris_tpu_torch.parallel.party_smoke import (
-    KEY,
-    dots_digest,
-    make_data,
-    query_rows,
-    run_party,
-)
+from mpc_iris_tpu_torch.parallel.party_smoke import KEY, dots_digest, run_party, under_digest
 from mpc_iris_tpu_torch.parallel.sharded import effective_chunk, local_db_span
+from mpc_iris_tpu_torch.smoke_data import make_data, query_rows
 
 CPU = torch.device("cpu")
 
@@ -148,26 +144,50 @@ def test_local_db_span_rejects_interleaved_ranks():
     assert local_db_span(cpu_mesh(4, 2)) == (0, 4)
 
 
-@pytest.mark.parametrize("pid", [0, 3])
-def test_db_row_across_ranks_raises(data, pid):
+@pytest.mark.parametrize("pid", [0, 1, 2, 3])
+def test_local_spans_on_2x2_mesh_equal_jax(monkeypatch, pid):
     """4 ranks of one card each on a (2, 2) mesh (``mesh_shape_for(4, 8)``):
-    each 'db' row spans two ranks, whose pieces the party would join twice.
-    The layout, the spans and every engine refuse it; batch 1 is served."""
-    _, _, dpat, dmsk, shares = data
+    each 'db' row spans two ranks, and both load it. ``local_db_span`` and
+    ``local_entry_spans`` equal the reference's for every rank."""
+    ranks = np.arange(4).reshape(2, 2)
     devs = np.empty((2, 2), dtype=object)
     devs[:] = CPU
-    mesh = Mesh(devs, np.arange(4).reshape(2, 2), process_index=pid)
+    jdevs = np.array([SimpleNamespace(process_index=int(r)) for r in ranks.flat]).reshape(2, 2)
+    jm = SimpleNamespace(axis_names=("db", "batch"), devices=jdevs, shape={"db": 2, "batch": 2})
+    monkeypatch.setattr(jax, "process_index", lambda: pid)
     assert mesh_shape_for(4, 8) == (2, 2)
-    for build in (lambda: local_db_span(mesh),
-                  lambda: multihost.local_entry_spans(19, 2, mesh),
-                  lambda: ShardedPlaintextEngine(dpat, dmsk, mesh, chunk=2),
-                  lambda: ShardedShareEngine(shares, mesh, chunk=2),
-                  lambda: ShardedMasksEngine(dmsk, mesh, chunk=2),
-                  lambda: ShardedKeyedShareEngine(bytes(32), 0, 16, mesh, chunk=2)):
-        with pytest.raises(ValueError, match="span several processes"):
-            build()
-    row = Mesh(devs.reshape(4, 1), np.arange(4).reshape(4, 1), process_index=pid)
-    assert local_db_span(row) == (pid, pid + 1)
+    mesh = Mesh(devs, ranks, process_index=pid)
+    assert local_db_span(mesh) == jax_local_db_span(jm) == (pid // 2, pid // 2 + 1)
+    for n, chunk in ((19, 2), (1000, 128), (100_000, 32_768)):
+        assert multihost.local_entry_spans(n, chunk, mesh) == \
+            jax_multihost.local_entry_spans(n, chunk, jm)
+
+
+def test_2x2_four_rank_party_equals_jax():
+    """Four processes of one party on a (2, 2) mesh over gloo, every row
+    outside a rank's local spans poisoned: the B = 8 winners, the B = 2
+    spectrum, the find_under lists and the share dots (MPC reply blocks)
+    equal the JAX package's single-process sharded engines on a (2, 2) mesh
+    of the clean data, and the keyed checksum the single-card engine's."""
+    t = 0.47  # lists the planted self-matches and some random entries
+    out = run_party(procs=4, backend="gloo", device="cpu", n=64, n_share=64, chunk=8,
+                    batch=8, shards_per_rank=1, mesh_batch=2, threshold=t, timeout=120)
+    pat, msk, share = make_data(7, 64, 64)
+    q = query_rows(64, 8)
+    assert out["mesh"] == [2, 2] and out["procs"] == 4 and out["local_rows"] == 32
+    ref = JaxShardedPlain(pat, msk, jmesh(2, 2), chunk=8)
+    assert out["winners"] == [[r.index, r.numerator, r.denominator]
+                              for r in ref.match(pat[q], msk[q])]
+    assert [w[0] for w in out["winners"]] == q.tolist()
+    assert out["spectrum_sha256"] == dots_digest(ref.min_fractions(pat[q[:2]], msk[q[:2]]))
+    under = ref.find_under(pat[q], msk[q], t)
+    assert out["under_sha256"] == under_digest(under)
+    assert out["under_hits"] == sum(map(len, under)) > 8
+    assert out["dots_sha256"] == dots_digest(
+        JaxShardedShare(share, jmesh(2, 2), chunk=8).dots(pat[q], msk[q]))
+    keyed = KeyedShareEngine(KEY, 0, 64, device="cpu", chunk=8)
+    assert out["keyed_checksum"] == int(keyed.fold_pass_fn()(
+        prepare_query_planes(torch.from_numpy(pat[q]), torch.from_numpy(msk[q]))[0]))
 
 
 def test_fraction_allmin_equals_jax_fold():

@@ -1,7 +1,7 @@
 """The port's own copies of the JAX package's JAX-free modules
 (mpc_iris_tpu_torch.constants and .types) against the originals: every
-constant equal, and Bits.rotated and Template.distance identical on the
-golden pairs."""
+constant equal, Bits.rotated and Template.distance identical on the golden
+pairs, and Template's 3,200-byte wire form the same."""
 
 import json
 
@@ -47,3 +47,13 @@ def test_bits_rotated_equals_jax_package(amount):
     got = Bits(ref.data).rotated(amount)
     np.testing.assert_array_equal(got.data, ref.rotated(amount).data)
     np.testing.assert_array_equal(Bits.from_grid(ref.grid()).data, ref.data)
+
+
+def test_template_bytes_equal_jax_package():
+    """The 3,200-byte wire form (pattern plane, then mask plane) both ways."""
+    ref = RefTemplate.random(np.random.default_rng(0x3200))
+    raw = _port(ref).to_bytes()
+    assert raw == ref.to_bytes()
+    assert Template.from_bytes(raw) == _port(RefTemplate.from_bytes(raw))
+    with pytest.raises(ValueError, match="3200"):
+        Template.from_bytes(raw[:-1])
