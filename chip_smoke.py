@@ -75,6 +75,21 @@ NVIDIA GPU, at full size, and check them.
   ``PlaintextEngine.match`` and the in-process MPC query, the audit list
   to ``find_under``; each keyed process must launch kernel (d); the
   processes are stopped by SIGTERM to their PIDs and killed at a deadline;
+- drives the CLI (``mpc_iris_tpu_torch.cli``) as a deployment does, in a
+  fresh directory under build/ (removed at the end): ``generate`` of a
+  262,144-entry JSON DB (about 1.7 GB, the C++ codec), ``match --storage
+  packed`` at B = 1, 8 (kernel (b)), 13 (kernel (a)) and ``--all-under
+  0.375`` at B = 8 (kernel (c)) in this process, each equal to an
+  in-process PlaintextEngine; ``prepare --backend device`` of a
+  65,536-entry 3-party store (kernel (d); cut by disk: 25.6 KB an entry a
+  share file) equal to the host path's bytes, ``store-check --key --deep``;
+  then ``python -m mpc_iris_tpu_torch`` processes: two keyed participants
+  and the data party on the batched wire (--watch), a coordinator whose
+  winners equal ``match``, an ``enroll`` of 4 candidates (2 duplicates)
+  and a query that finds the enrolled entries; a SIGUSR2 torch.profiler
+  trace of a keyed participant that must name kernel (d), a SIGUSR1 stats
+  line with the card's memory, every participant stopped by SIGTERM to its
+  PID ("cli: participants [...]") and drained cleanly; ``bench-kernels``;
 - counts the kernel launches of each path's run, and times each request and
   each kernel beside its plain version, labelled with the card's name and
   limit; the packed kernels (b) and (c) at B = 1, 8, 16, 32, 64 and 128,
@@ -98,20 +113,27 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import hashlib
+import io
 import json
 import os
 import re
+import shutil
+import signal
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
 import numpy as np
 import torch
 
-from mpc_iris_tpu_torch import BITS, BITS_BYTES, Bits, Template
+from mpc_iris_tpu_torch import BITS, BITS_BYTES, Bits, Template, native
+from mpc_iris_tpu_torch.cli import main as cli_main
+from mpc_iris_tpu_torch.io.formats import write_templates_json
 from mpc_iris_tpu_torch.models.engines import (
     DEFAULT_CHUNK,
     AuditLimitExceeded,
@@ -218,6 +240,13 @@ PARTIES_START_S = 240
 PARTIES_STOP_S = 60
 ROUND_TIMEOUT_S = 60
 PROTOCOL_REPS = 3
+# the CLI phase: match's JSON DB (about 1.7 GB of JSON), and the MPC store,
+# cut to 65,536 entries by disk: prepare writes 25.6 KB an entry to each of
+# its 3 share files (5.0 GB here, 20 GB at 262,144); the seconds a
+# coordinator or enroll process may take
+CLI_DB = 262_144
+CLI_STORE = 65_536
+CLI_ROLE_S = 300
 
 
 def check(ok: bool, what: str) -> None:
@@ -972,6 +1001,346 @@ def party_phase(dev, seed: int, card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def cli_run(argv: list) -> tuple[int, str, str, float]:
+    """``mpc_iris_tpu_torch.cli.main(argv)`` in this process (so the kernels'
+    launch counters see it): (exit code, stdout, stderr, seconds)."""
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def winners(out: str) -> list:
+    """(index, distance) of each ``query i: closest entry X [of T] at
+    distance D`` line, in order."""
+    return [(int(m[1]), float(m[2])) for m in re.finditer(
+        r"^query \d+: closest entry (\d+)(?: of \d+)? at distance (\S+)", out, re.M)]
+
+
+def audit_lines(out: str) -> list:
+    return [l for l in out.splitlines() if l.startswith("query ") or l.startswith("  entry ")]
+
+
+def wait_for(path: str, text: str, proc, deadline: float) -> str:
+    """Poll the log file ``path`` until it holds ``text``; fails when
+    ``proc`` exits first or the deadline passes."""
+    while True:
+        with open(path, errors="replace") as f:
+            log = f.read()
+        if text in log:
+            return log
+        check(proc.poll() is None, f"cli: pid {proc.pid} exited {proc.returncode} before "
+              f"{text!r}:\n{log[-3000:]}")
+        check(time.monotonic() < deadline, f"cli: no {text!r} from pid {proc.pid} in time:\n"
+              f"{log[-3000:]}")
+        time.sleep(0.2)
+
+
+def stop_roles(roles: dict, timeout: float) -> dict:
+    """SIGTERM each role by its PID, wait up to ``timeout`` s in all, kill at
+    the deadline. Returns name -> (exit code, its stderr log)."""
+    for proc, _ in roles.values():
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+    deadline = time.monotonic() + timeout
+    out = {}
+    for name, (proc, log) in roles.items():
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        with open(log, errors="replace") as f:
+            out[name] = (proc.returncode, f.read())
+    return out
+
+
+def cli_phase(dev: torch.device, seed: int, card: str, n_db: int = CLI_DB,
+              n_store: int = CLI_STORE) -> dict:
+    """The CLI (``mpc_iris_tpu_torch.cli``, ``python -m mpc_iris_tpu_torch``)
+    as a deployment drives it, in a fresh directory under build/ that is
+    removed at the end (also on failure). In this process: ``generate`` of
+    an ``n_db``-entry JSON DB and ``match --storage packed`` at B = 1, 8 and
+    13 and ``--all-under 0.375`` at B = 8, each equal to an in-process
+    PlaintextEngine over the same arrays; ``generate`` / ``prepare --backend
+    device`` of an ``n_store``-entry 3-party store and ``store-check --key
+    --deep``. Then the serving roles, each a process of its own: two keyed
+    participants and the data party on the batched wire, a coordinator whose
+    winners must equal ``match``, an ``enroll`` of 4 candidates (2
+    duplicates) and a query that finds an enrolled entry after the parties
+    adopted it (--watch, --watch-count); a SIGUSR2 trace of the second keyed
+    party (nothing resident: kernel (d) every request) around a query, a
+    SIGUSR1 stats line; every role stopped by SIGTERM and drained cleanly.
+    Last ``bench-kernels``. Returns the launches in this process of (a),
+    (b), (c) (``match``) and (d) (``prepare --backend device``)."""
+    on_card = dev.type == "cuda"
+    device = [] if on_card else ["--device", "cpu"]  # the default is the card
+    root = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(root, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli-phase-", dir=os.path.join(root, "build"))
+    disk = shutil.disk_usage(tmp)
+    print(f"cli: working directory {tmp}, {disk.free / 1e9:.1f} GB free of "
+          f"{disk.total / 1e9:.1f} GB")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    roles = {}
+    try:
+        db, small = os.path.join(tmp, "db.json"), os.path.join(tmp, "small.json")
+        rc, _, _, gen_s = cli_run(["generate", db, str(n_db), "--seed", str(seed)])
+        check(rc == 0, "cli: generate")
+        size = os.path.getsize(db)
+        t0 = time.perf_counter()
+        pats, msks = [], []
+        with open(db, "rb") as f:
+            for p, m in native.parse_templates_stream(f, batch=4096):
+                pats.append(p)
+                msks.append(m)
+        parse_s = time.perf_counter() - t0
+        dpat, dmsk = np.concatenate(pats), np.concatenate(msks)
+        del pats, msks
+        check(native.available() and dpat.shape == (n_db, BITS_BYTES),
+              "cli: the C++ codec rendered and parsed the DB")
+        print(f"time cli generate N={n_db}: {gen_s:.3f} s, {size / gen_s / 1e6:.1f} MB/s of "
+              f"JSON ({size} bytes); parse {parse_s:.3f} s, {size / parse_s / 1e6:.1f} MB/s "
+              f"(C++ codec, host wall) [{card}]")
+
+        # ---- match through the CLI, counted
+        requests = [(["--batch", "1", "--seed", str(seed + 1)], 1, None),
+                    (["--batch", "8", "--seed", str(seed + 2)], 8, None),
+                    (["--batch", "13", "--seed", str(seed + 3)], 13, None),
+                    (["--batch", "8", "--seed", str(seed + 4), "--all-under",
+                      str(AUDIT_THRESHOLD)], 8, AUDIT_THRESHOLD)]
+        counted = (select_chunk, match_packed_small_b, fractions_packed_small_b,
+                   share_planes_kernel)
+        for fn in counted:
+            fn.launches = 0
+        outs = []
+        for args, bb, t in requests:
+            rc, out, err, s = cli_run(["match", db, "--storage", "packed", *args, *device])
+            check(rc == 0, f"cli: match {' '.join(args)}")
+            outs.append((out, err, s))
+        launches = {fn.__name__: fn.launches for fn in counted[:3]}
+        print(f"launches in the cli match run: {json.dumps(launches)}")
+
+        # ---- the same requests on an in-process engine over the same arrays
+        plain = PlaintextEngine(dpat, dmsk, device=dev, storage="packed")
+        for (args, bb, t), (out, err, s) in zip(requests, outs):
+            rng = np.random.default_rng(int(args[3]))  # the CLI's self-match queries
+            idx = rng.integers(0, n_db, size=bb)
+            rots = rng.integers(-15, 16, size=bb)
+            qp = np.stack([Bits(dpat[i]).rotated(int(r)).data for i, r in zip(idx, rots)])
+            qm = np.stack([Bits(dmsk[i]).rotated(int(r)).data for i, r in zip(idx, rots)])
+            what = f"cli: match B={bb}" + (f" --all-under {t}" if t else "")
+            if t is None:
+                res = plain.match(qp, qm)
+                check(winners(out) == [(r.index, r.distance) for r in res],
+                      f"{what}: winners equal PlaintextEngine.match")
+                check([i for i, _ in winners(out)] == idx.tolist()
+                      and all(d == 0.0 for _, d in winners(out)),
+                      f"{what}: each self-match names its source entry at 0.0")
+                ms = wall_ms(lambda: plain.match(qp, qm), 3)
+            else:
+                lists = plain.find_under(qp, qm, t)
+                want = []
+                for i, hits in enumerate(lists):
+                    want.append(f"query {i}: {len(hits)} entr{'y' if len(hits) == 1 else 'ies'} "
+                                f"under {t}")
+                    want += [f"  entry {m.index} at distance {m.distance}" for m in hits]
+                check(audit_lines(out) == want, f"{what}: lists equal PlaintextEngine.find_under")
+                check(all((int(i), 0.0) in [(m.index, m.distance) for m in hits]
+                          for i, hits in zip(idx, lists)),
+                      f"{what}: each query lists its source entry at 0.0")
+                ms = wall_ms(lambda: plain.find_under(qp, qm, t), 3)
+            line = next(l for l in err.splitlines() if " entries in " in l)
+            print(f"time {what}: '{line}'; the call {s:.3f} s (parse, engine build, request); "
+                  f"in-process engine {ms:.3f} ms (median of 3, host wall) [{card}]")
+        if on_card:
+            check(launches["match_packed_small_b"] > 0 and launches["select_chunk"] > 0
+                  and launches["fractions_packed_small_b"] > 0,
+                  "cli: match launched kernels (b) (B=1, 8), (a) (B=13), (c) (--all-under)")
+        del plain, dpat, dmsk
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # ---- the MPC store, prepared on the device
+        rc, _, _, _ = cli_run(["generate", small, str(n_store), "--seed", str(seed + 5)])
+        check(rc == 0, "cli: generate the store's JSON")
+        base, key = os.path.join(tmp, "mpc"), os.path.join(tmp, "mpc.key")
+        share_planes_kernel.launches = 0
+        rc, _, err, prep_s = cli_run(["prepare", small, "3", base, "--insecure-seed", "9",
+                                      "--save-key", key, "--backend", "device", *device])
+        check(rc == 0, f"cli: prepare --backend device:\n{err[-2000:]}")
+        launches["share_planes_kernel"] = share_planes_kernel.launches
+        print(f"launches in the cli prepare --backend device: "
+              f"{json.dumps({'share_planes_kernel': launches['share_planes_kernel']})}")
+        if on_card:
+            check(launches["share_planes_kernel"] > 0, "cli: prepare launched kernel (d)")
+        store_bytes = sum(os.path.getsize(f"{base}.{x}")
+                          for x in ("masks", "share-0", "share-1", "share-2"))
+        print(f"time cli prepare --backend device N={n_store} 3 shares: {prep_s:.3f} s, "
+              f"{store_bytes / prep_s / 1e6:.1f} MB/s written ({store_bytes} bytes) [{card}]")
+        with open(small, "rb") as f:  # the host path's bytes for the first rows
+            p0, m0 = next(native.parse_templates_stream(f, batch=1000))
+        host = native.share_split(native.encode_u16_native(p0, m0), 3,
+                                  native.derive_insecure_key(9))
+        for s in range(3):
+            check(np.array_equal(np.fromfile(f"{base}.share-{s}", "<u2", count=len(p0) * BITS),
+                                 host[s].reshape(-1)),
+                  f"cli: prepare --backend device share {s} equals the host path's bytes")
+        rc, _, err, _ = cli_run(["store-check", base, "--count", "3", "--key", key, "--deep",
+                                 *device])
+        check(rc == 0, f"cli: store-check --key --deep:\n{err[-2000:]}")
+        print(f"cli: store-check --key --deep: {err.strip().splitlines()[-1]}")
+
+        # ---- the serving roles, each in a process of its own
+        with open(small, "rb") as f:
+            spat, smsk = (np.concatenate(x) for x in zip(*native.parse_templates_stream(f)))
+        rng = np.random.default_rng(seed + 6)
+        src = rng.choice(n_store, 6, replace=False)
+        qs = [Template(Bits(spat[i]), Bits(smsk[i])).rotated(int(r))
+              for i, r in zip(src, rng.integers(-15, 16, 6))]
+        qs += [Template.random(rng) for _ in range(2)]
+        qfile = os.path.join(tmp, "q.json")
+        with open(qfile, "wb") as f:
+            write_templates_json(f, qs)
+        ports = []
+        for _ in range(3):
+            with socket.socket() as s_:
+                s_.bind(("127.0.0.1", 0))
+                ports.append(s_.getsockname()[1])
+        addrs = [f"127.0.0.1:{p}" for p in ports]
+        prof = os.path.join(tmp, "prof")
+        specs = {"keyed 0": ([f"keyed:0:{n_store}:{key}", "--watch-count", f"{base}.count"], {}),
+                 "keyed 1": ([f"keyed:1:{n_store}:{key}", "--watch-count", f"{base}.count",
+                              "--profile-dir", prof], {"MPC_IRIS_HBM_BUDGET": "0"}),
+                 "data": ([f"{base}.share-2"], {})}
+        cmd = [sys.executable, "-m", "mpc_iris_tpu_torch"]
+        t0 = time.perf_counter()
+        for (name, (args, extra)), addr in zip(specs.items(), addrs):
+            log = os.path.join(tmp, f"{name.replace(' ', '')}.log")
+            with open(log, "wb") as lf:
+                proc = subprocess.Popen(
+                    [*cmd, "participant", args[0], addr, "--wire", "batched", "--watch",
+                     *args[1:], *device], stdout=lf, stderr=lf, cwd=tmp, env={**env, **extra})
+            roles[name] = (proc, log)
+        print(f"cli: participants {[p.pid for p, _ in roles.values()]}")
+        deadline = time.monotonic() + PARTIES_START_S
+        for proc, log in roles.values():
+            wait_for(log, "listening on", proc, deadline)
+        print(f"cli: participants listening in {time.perf_counter() - t0:.1f} s (process "
+              f"start, torch import, engine build, warm-up) [{card}]")
+
+        def role(*argv, timeout=CLI_ROLE_S):
+            t0 = time.perf_counter()
+            r = subprocess.run([*cmd, *argv, *device], capture_output=True, text=True,
+                               cwd=tmp, env=env, timeout=timeout)
+            return r, time.perf_counter() - t0
+
+        keyed1, log1 = roles["keyed 1"]
+        keyed1.send_signal(signal.SIGUSR2)
+        wait_for(log1, "device trace STARTED", keyed1, time.monotonic() + 30)
+        served, served_s = role("coordinator", *addrs, "--masks", f"{base}.masks",
+                                "--queries-file", qfile, "--wire", "batched", "--batch", "8",
+                                "--strict-scan", "--timeout", "120")
+        keyed1.send_signal(signal.SIGUSR2)
+        log = wait_for(log1, "device trace stopped", keyed1, time.monotonic() + 120)
+        check(served.returncode == 0, f"cli: coordinator:\n{served.stderr[-3000:]}")
+        rc, out, _, _ = cli_run(["match", small, "--queries-file", qfile, *device])
+        check(rc == 0 and len(winners(out)) == len(qs), "cli: match --queries-file")
+        check(winners(served.stdout) == winners(out),
+              "cli: the served coordinator's winners equal match's")
+        check([i for i, _ in winners(out)[:6]] == src.tolist()
+              and all(d == 0.0 for _, d in winners(out)[:6]),
+              "cli: the served self-matches name their source entries at 0.0")
+        batch_line = next(l for l in served.stderr.splitlines() if l.startswith("batch of"))
+        print(f"time cli coordinator N={n_store} B=8 (3 participant processes, batched wire): "
+              f"'{batch_line}'; the process {served_s:.3f} s (start, masks engine, query) "
+              f"[{card}]")
+        trace_path = re.search(r"device trace stopped -> (\S+)", log)[1]
+        with open(trace_path) as f:
+            events = json.load(f)["traceEvents"]
+        chacha = [e for e in events if "chacha_planes_kernel" in str(e.get("name", ""))
+                  and e.get("cat") == "kernel"]
+        print(f"cli: SIGUSR2 trace of keyed participant 1 ({os.path.getsize(trace_path)} bytes, "
+              f"{len(events)} events): {len(chacha)} chacha_planes_kernel launches")
+        if on_card:
+            check(chacha, "cli: the SIGUSR2 trace names kernel (d)'s CUDA kernel")
+        keyed0, log0 = roles["keyed 0"]
+        keyed0.send_signal(signal.SIGUSR1)
+        log = wait_for(log0, "participant: stats ", keyed0, time.monotonic() + 30)
+        stats = json.loads(log.split("participant: stats ", 1)[1].splitlines()[0])
+        print(f"cli: SIGUSR1 stats of keyed participant 0: {json.dumps(stats)}")
+        check(stats["served"] >= 1 and (stats["hbm"]["bytes_in_use"] is not None or not on_card),
+              "cli: SIGUSR1 stats line with the card's memory")
+
+        # ---- enroll 4 candidates, 2 duplicates, then find an enrolled one
+        fresh = [Template.random(np.random.default_rng(seed + 7 + k)) for k in range(2)]
+        dup_of = int(src[0])
+        cands = [Template(Bits(spat[dup_of]), Bits(smsk[dup_of])), fresh[0],
+                 fresh[0].rotated(5), fresh[1]]
+        cfile, qfile2 = os.path.join(tmp, "cands.json"), os.path.join(tmp, "q2.json")
+        with open(cfile, "wb") as f:
+            write_templates_json(f, cands)
+        with open(qfile2, "wb") as f:
+            write_templates_json(f, [fresh[1].rotated(-2), fresh[0]])
+        enrolled, enroll_s = role("enroll", cfile, base, *addrs, "--count", "3", "--key", key,
+                                  "--threshold", "0.36", "--wire", "batched", "--round", "4",
+                                  "--timeout", "120")
+        check(enrolled.returncode == 0, f"cli: enroll:\n{enrolled.stderr[-3000:]}")
+        verdicts = [l for l in enrolled.stdout.splitlines() if l.startswith("candidate ")]
+        want = [f"DUPLICATE of entry {dup_of} at distance 0.0",
+                f"enrolled at index {n_store}",
+                f"DUPLICATE of entry {n_store} at distance 0.0",
+                f"enrolled at index {n_store + 1}"]
+        check(len(verdicts) == 4 and all(w in v for w, v in zip(want, verdicts)),
+              f"cli: enroll verdicts {verdicts}")
+        print(f"time cli enroll of 4 candidates N={n_store} (one batched round): the process "
+              f"{enroll_s:.3f} s [{card}]; verdicts {verdicts}")
+        after, _ = role("coordinator", *addrs, "--masks", f"{base}.masks",
+                        "--queries-file", qfile2, "--wire", "batched", "--batch", "2",
+                        "--strict-scan", "--timeout", "120")
+        check(after.returncode == 0, f"cli: coordinator after enroll:\n{after.stderr[-3000:]}")
+        check(winners(after.stdout) == [(n_store + 1, 0.0), (n_store, 0.0)]
+              and f" of {n_store + 2} " in after.stdout,
+              "cli: the next query finds the enrolled entries, every party grown (--watch)")
+        print(f"cli: after enroll, the served query finds entries {n_store + 1} and {n_store} "
+              f"at 0.0 over {n_store + 2} entries")
+
+        stopped = stop_roles(roles, PARTIES_STOP_S)
+        roles = {}
+        for name, (rc, log) in stopped.items():
+            check(rc == 0 and "drained cleanly" in log,
+                  f"cli: participant {name} exit {rc} after SIGTERM:\n{log[-2000:]}")
+        print(f"cli: participants stopped by SIGTERM, each drained cleanly (exit 0)")
+
+        # ---- bench-kernels (launches from here on are not counted)
+        rc, out, _, bench_s = cli_run(["bench-kernels", "--json", "--sizes", "1000", "100000",
+                                       *device])
+        check(rc == 0, "cli: bench-kernels")
+        rows_ = [json.loads(l) for l in out.splitlines() if l.startswith("{")]
+        names = [r["bench"] for r in rows_]
+        if on_card:
+            for k in ("match_packed_small_b/", "chacha_regen/"):
+                picked = [r for r in rows_ if r["bench"].startswith(k)]
+                check(picked and all(np.isfinite(r["time_s"]) and r["time_s"] > 0
+                                     for r in picked), f"cli: bench-kernels {k} rows")
+        print(f"cli: bench-kernels --json ({bench_s:.1f} s) [{card}]:")
+        for r in rows_:
+            rate = r.get("pairs_per_s") or r.get("items_per_s")
+            print(f"  {r['bench']}: {r['time_s'] * 1e3:.4f} ms, {rate:.4g} /s"
+                  + (f", {r['tmacs']:.1f} TMAC/s" if r.get("tmacs") else ""))
+        check(any(n.startswith("etl/") for n in names), "cli: bench-kernels host rows")
+        written = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(tmp)
+                      for f in fs)
+        print(f"cli: {written} bytes written under {tmp}")
+        return launches
+    finally:
+        if roles:
+            stop_roles(roles, 10)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1294,8 +1663,10 @@ def main() -> int:
     party_phase(dev, args.seed, card)
     print(f"launches in the sharded paths: {json.dumps(sharded)}")
     check(all(v > 0 for v in sharded.values()), "every kernel launched on the sharded paths")
-    for k in kernels:  # the main paths' launches: single-card, sharded, served
-        k["launches"] += sharded[k["name"]]
+    cli = cli_phase(dev, args.seed, card)
+    print(f"launches in the cli phase (this process): {json.dumps(cli)}")
+    for k in kernels:  # the main paths' launches: single-card, sharded, served, cli
+        k["launches"] += sharded[k["name"]] + cli[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], shard_err.get(k["name"], 0))
         if k["name"] == "share_planes_kernel":
             k["launches"] += served

@@ -43,7 +43,9 @@ from mpc_iris_tpu_torch.constants import (
     ROTATIONS,
     ROWS,
 )
-from mpc_iris_tpu_torch.types import Bits, Template
+from mpc_iris_tpu_torch.types import Bits, EncodedBits, Template
+
+__version__ = "0.1.0"
 
 __all__ = [
     "BITS",
@@ -54,5 +56,7 @@ __all__ = [
     "ROTATIONS",
     "ROWS",
     "Bits",
+    "EncodedBits",
     "Template",
+    "__version__",
 ]

@@ -1115,7 +1115,11 @@ class MasksEngine:
         rows = np.ascontiguousarray(self._source[start:end], dtype=np.uint8)
         if end - start < self.chunk:
             rows = np.pad(rows, [(0, self.chunk - (end - start)), (0, 0)])
-        block = torch.from_numpy(rows).to(self.device)
+        # a read-only memmap slice (the CLI's masks file) is only read: its
+        # not-writable warning is silenced, as in ShareEngine._put
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            block = torch.from_numpy(rows).to(self.device)
         if self.storage == "packed":
             return block
         return unpack_bits(block).to(torch.int8)

@@ -356,3 +356,22 @@ def test_coordinator_on_card_equals_cpu(cuda):
         assert repr(got) == repr(asyncio.run(go(torch.device("cpu"), wire)))
         assert (got[0].index, got[0].distance, got[0].total) == (7, 0.0, n)
     assert [o.index for o in got[:2]] == [7, 250]
+
+
+def test_cli_match_packed_launches_kernel_b(cuda, tmp_path, capsys):
+    """``cli.main(["match", ..., "--storage", "packed", "--batch", "8"])`` on
+    the card: every self-match query at 0.0 through kernel (b), the same
+    winner lines as the CLI on the CPU."""
+    from mpc_iris_tpu_torch.cli import main
+
+    db = str(tmp_path / "db.json")
+    assert main(["generate", db, "5000", "--seed", "9"]) == 0
+    argv = ["match", db, "--storage", "packed", "--batch", "8", "--seed", "4"]
+    capsys.readouterr()
+    before = tpm.match_packed_small_b.launches
+    assert main([*argv, "--device", "cuda"]) == 0
+    assert tpm.match_packed_small_b.launches > before
+    lines = [l for l in capsys.readouterr().out.splitlines() if l.startswith("query ")]
+    assert len(lines) == 8 and all(l.endswith("at distance 0.0") for l in lines)
+    assert main([*argv, "--device", "cpu"]) == 0
+    assert [l for l in capsys.readouterr().out.splitlines() if l.startswith("query ")] == lines

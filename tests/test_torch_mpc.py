@@ -406,9 +406,21 @@ def test_jax_roles_serve_port_engines():
                                     *(f"mpc_iris_tpu_torch.protocol.{m}" for m in (
                                         "wire", "pump", "drain", "keyagree", "tlsutil",
                                         "participant", "coordinator", "party_proc")),
-                                    "mpc_iris_tpu_torch.smoke_data"])
+                                    "mpc_iris_tpu_torch.smoke_data",
+                                    *(f"mpc_iris_tpu_torch.{m}" for m in (
+                                        "cli", "benchmarks", "io", "io.formats",
+                                        "io.json_stream", "native", "utils",
+                                        "utils.profiling", "utils.stats", "types")),
+                                    "mpc_iris_tpu_torch.__main__"])
 def test_import_leaves_jax_out(module):
-    code = (f"import sys, {module}; assert 'jax' not in sys.modules, 'jax imported'; "
+    # __main__ is run as `python -m` does, on a host-only benchmark that
+    # reaches the CLI, the benchmarks, the native codec and the stats
+    load = ("import runpy; sys.argv = ['mpc_iris_tpu_torch', 'bench-kernels', "
+            "'--host-only', '--device', 'cpu']\n"
+            "try: runpy.run_module('mpc_iris_tpu_torch', run_name='__main__')\n"
+            "except SystemExit as e: assert e.code == 0, e.code"
+            if module.endswith("__main__") else f"import {module}")
+    code = (f"import sys\n{load}\nassert 'jax' not in sys.modules, 'jax imported'; "
             "assert not [m for m in sys.modules if m.split('.')[0] == 'mpc_iris_tpu'], "
             "'a module of the JAX package imported'")
     subprocess.run([sys.executable, "-c", code], check=True,
