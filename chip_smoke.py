@@ -90,6 +90,13 @@ NVIDIA GPU, at full size, and check them.
   trace of a keyed participant that must name kernel (d), a SIGUSR1 stats
   line with the card's memory, every participant stopped by SIGTERM to its
   PID ("cli: participants [...]") and drained cleanly; ``bench-kernels``;
+- holds the port to the repo's reference vectors on the card
+  (``conformance_phase``): the golden set of tests/golden_distances.json
+  through packed and dense ``distances``, ``match`` at B = 8 (kernel (b))
+  and 17 (kernel (a)), ``min_fractions`` (kernel (c)) and the encoded path
+  with a keyed party (kernel (d)); the interop fixture's frozen share and
+  mask records, decoded distances and keystream rows (kernel (d)); every f64
+  bit-equal; then examples/api_demo_torch.py at 262,144 entries, B = 8;
 - counts the kernel launches of each path's run, and times each request and
   each kernel beside its plain version, labelled with the card's name and
   limit; the packed kernels (b) and (c) at B = 1, 8, 16, 32, 64 and 128,
@@ -115,6 +122,7 @@ import argparse
 import asyncio
 import contextlib
 import hashlib
+import importlib.util
 import io
 import json
 import os
@@ -148,10 +156,21 @@ from mpc_iris_tpu_torch.models.engines import (
     find_under_from_fractions,
 )
 from mpc_iris_tpu_torch.ops import _build
-from mpc_iris_tpu_torch.ops.chacha import key_tensor, share_planes_kernel, share_planes_natural
-from mpc_iris_tpu_torch.ops.decode import fractions_to_f64_np, under_threshold_mask_np
+from mpc_iris_tpu_torch.ops.chacha import (
+    k_permutation,
+    key_tensor,
+    share_planes_kernel,
+    share_planes_natural,
+)
+from mpc_iris_tpu_torch.ops.decode import (
+    decode_distance,
+    decode_distance_batch_np,
+    fraction_to_f64,
+    fractions_to_f64_np,
+    under_threshold_mask_np,
+)
 from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, planes_to_shares
-from mpc_iris_tpu_torch.ops.encode import share_split_device
+from mpc_iris_tpu_torch.ops.encode import encode_template, share_split_device
 from mpc_iris_tpu_torch.ops.packed_match import (
     _launch_plan,
     fractions_packed_small_b,
@@ -247,6 +266,39 @@ PROTOCOL_REPS = 3
 CLI_DB = 262_144
 CLI_STORE = 65_536
 CLI_ROLE_S = 300
+# the conformance phase: the golden set (its seed and distances, computed by
+# the pure-Python oracle of tests/oracles.py); the interop fixture of
+# tests/test_interop.py (8 entries and a query built from closed-form bytes)
+# with its frozen answers, computed there by a plain-int spec of the
+# reference: entry 1's distance and denominator records, the 8 decoded
+# distances, and keystream rows (stream id, row) -> first 4 u16 under the key
+# bytes(range(32)), those whose row kernel (d) reaches from a 32-bit row
+# offset; a key for the golden set's keyed party; the library walkthrough at
+# the MPC query's size (bench.py --mode share's default), cut when the host
+# cannot hold its shares
+GOLDEN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "golden_distances.json")
+INTEROP_ENTRIES, INTEROP_QUERY = 8, 9
+FROZEN_DIST_RECORD_E1 = [
+    64, 20, 65522, 65500, 4, 30, 65432, 62662, 6, 50, 10, 16, 12, 65474, 58,
+    2559, 66, 65472, 6, 65532, 65528, 48, 6, 64468, 65436, 66, 32, 30, 18,
+    65506, 36,
+]
+FROZEN_DEN_RECORD_E1 = [12342] * 15 + [12571] + [12342] * 15
+FROZEN_DISTANCES = [
+    0.43550478042456653, 0.3982181210723093, 0.2532004537352131,
+    0.4519926815686898, 0.4224569711319552, 0.49659698590179874,
+    0.48152649489547883, 0.437773456490034,
+]
+FROZEN_KEYED_ROWS = {
+    (0, 0): [64825, 32043, 50649, 27161],
+    (1, 1): [27390, 27408, 23409, 47431],
+    (5, 1000): [60086, 61944, 29730, 63774],
+    (2147483648, 4294967296): [1764, 10301, 43630, 27855],
+    (4294967295, 3): [20680, 25815, 31232, 15733],
+}
+GOLDEN_KEY = bytes(range(7, 39))
+DEMO_DB, DEMO_DB_CUT, DEMO_BATCH = 262_144, 65_536, 8
 
 
 def check(ok: bool, what: str) -> None:
@@ -1341,6 +1393,188 @@ def cli_phase(dev: torch.device, seed: int, card: str, n_db: int = CLI_DB,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def golden_templates(seed: int) -> list:
+    """tests/test_golden.py's ``generate_templates`` on the port's types (a
+    copy: that module imports the JAX package): 8 random templates, a rotated
+    copy of each with about 5% of its pattern bits flipped, and the empty
+    template."""
+    rng = np.random.default_rng(seed)
+    templates = [Template.random(rng) for _ in range(8)]
+    for i in range(8):
+        t = templates[i].rotated(int(rng.integers(-15, 16)))
+        noise = rng.random(BITS) < 0.05
+        pat = np.unpackbits(t.pattern.data, bitorder="little") ^ noise
+        templates.append(Template(Bits(np.packbits(pat, bitorder="little")),
+                                  Bits(t.mask.data)))
+    templates.append(Template(Bits(), Bits()))
+    return templates
+
+
+def interop_fixture(e: int) -> Template:
+    """Entry ``e`` of tests/test_interop.py's fixture, from its closed-form
+    bytes (``fx_pattern``, ``fx_mask``): dense irregular patterns, masks
+    mostly set with entry-dependent holes."""
+    j = np.arange(BITS_BYTES)
+    pattern = (37 * e + 11 * j + 5) % 256
+    mask = 255 - ((j * (e + 3)) % 7 == 0) * (1 << (j % 8))
+    return Template(Bits(pattern.astype(np.uint8)), Bits(mask.astype(np.uint8)))
+
+
+def host_available_bytes() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def conformance_phase(dev: torch.device, card: str, demo_db: int = DEMO_DB) -> dict:
+    """The repo's reference vectors through the port's engines and the four
+    kernels, every f64 bit-equal to a value neither package computed:
+
+    - the golden set (17 templates; DB the 6 entries of the golden pairs):
+      the scalar oracle ``Template.distance`` of every (query, entry) pair,
+      equal to the golden file on its pairs; packed and dense ``distances``
+      equal to it; ``match`` at B = 8 (kernel (b)) and at all 17 queries
+      (packed and dense: the scan through kernel (a)), each winner the row's
+      minimum at its first index; ``min_fractions`` at B = 8 (kernel (c)),
+      decoded by ``fraction_to_f64``; the encoded path with a keyed party 0
+      (kernel (d) regenerates its rows) and a data-share party 1 from
+      ``native.share_split``, decoded by ``decode_distance`` per golden pair;
+    - the interop fixture: ``ShareEngine`` and ``MasksEngine`` records equal
+      to the frozen records and decoded distances, ``PlaintextEngine.match``
+      (kernel (b)) at their minimum, and the keystream known answers from
+      kernel (d) itself, one past the u64 row carry;
+    - ``examples/api_demo_torch.py`` at ``demo_db`` entries and B = 8, cut to
+      DEMO_DB_CUT when the host's available memory cannot hold it.
+
+    Returns the phase's launches of (a) to (d); on the card each must be
+    nonzero. No check falls back: a mismatch raises."""
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    counted = (select_chunk, match_packed_small_b, fractions_packed_small_b,
+               share_planes_kernel)
+    for fn in counted:
+        fn.launches = 0
+
+    # ---- the golden set
+    with open(GOLDEN_PATH) as f:
+        golden = json.load(f)
+    templates = golden_templates(golden["seed"])
+    check(len(templates) == golden["n_templates"], "golden: template count")
+    want = {(r["left"], r["right"]): float("inf") if r["distance"] is None
+            else float(r["distance"]) for r in golden["distances"]}
+    right = sorted({e for _, e in want})
+    left = sorted({q for q, _ in want})
+    pat = np.stack([t.pattern.data for t in templates])
+    msk = np.stack([t.mask.data for t in templates])
+    dpat, dmsk = pat[right], msk[right]
+    oracle = np.array([[q.distance(templates[e]) for e in right] for q in templates])
+    for (q, e), d in want.items():
+        check(oracle[q, right.index(e)] == d,
+              f"golden ({q}, {e}): Template.distance equals the golden file")
+    row_min, row_arg = oracle.min(axis=1), oracle.argmin(axis=1)
+
+    def winners_at_row_min(results, what):
+        check(len(results) > 0 and all(
+            (r.index, r.distance) == (int(row_arg[q]), float(row_min[q]))
+            for q, r in enumerate(results)),
+            f"golden {what}: each winner is its row's minimum, first index")
+
+    packed = PlaintextEngine(dpat, dmsk, device=dev, storage="packed")
+    dense = PlaintextEngine(dpat, dmsk, device=dev, storage="dense")
+    for name, eng in (("packed", packed), ("dense", dense)):
+        check(np.array_equal(eng.distances(pat, msk), oracle),
+              f"golden {name} distances: every pair equals Template.distance")
+    winners_at_row_min(packed.match(pat[:8], msk[:8]), "packed match B=8 (kernel (b))")
+    winners_at_row_min(packed.match(pat, msk), "packed match B=17 (the scan, kernel (a))")
+    winners_at_row_min(dense.match(pat, msk), "dense match B=17 (kernel (a))")
+    nd = packed.min_fractions(pat[:8], msk[:8])
+    check(np.array_equal([[fraction_to_f64(n, d) for n, d in zip(*nd[:, q])]
+                          for q in range(8)], oracle[:8]),
+          "golden min_fractions B=8 (kernel (c)): fraction_to_f64 equals Template.distance")
+    enc = np.stack([encode_template(templates[e]).data for e in right])
+    shares = native.share_split(enc, 2, GOLDEN_KEY)
+    parties = [KeyedShareEngine(GOLDEN_KEY, 0, len(right), device=dev),
+               ShareEngine(shares[1], device=dev)]
+    check(np.array_equal(parties[0].dots(pat[left], msk[left]),
+                         ShareEngine(shares[0], device=dev).dots(pat[left], msk[left])),
+          "golden keyed party 0 (kernel (d)): dots equal its share file's")
+    dots = native.share_sum([p.dots(pat[left], msk[left]) for p in parties])
+    dens = MasksEngine(dmsk, device=dev).dots(msk[left])
+    for (q, e), d in want.items():
+        got = decode_distance(dots[left.index(q), right.index(e)],
+                              dens[left.index(q), right.index(e)])
+        check(got == d, f"golden ({q}, {e}) encoded path, keyed party 0: "
+              f"decode_distance {got!r} equals the golden {d!r}")
+    check(np.array_equal(decode_distance_batch_np(dots.reshape(-1, 31), dens.reshape(-1, 31))
+                         .reshape(len(left), -1), oracle[left]),
+          "golden encoded path: every pair decodes to Template.distance")
+    print(f"conformance golden: {len(want)} golden pairs and all {oracle.size} pairs of 17 "
+          "queries x 6 entries bit-equal through packed and dense distances, match B=8 (b), "
+          "B=17 (a), min_fractions B=8 (c), the encoded path with keyed party 0 (d)")
+    del packed, dense, parties
+
+    # ---- the interop fixture's frozen vectors
+    fixture = [interop_fixture(e) for e in range(INTEROP_ENTRIES)]
+    ipat = np.stack([t.pattern.data for t in fixture])
+    imsk = np.stack([t.mask.data for t in fixture])
+    ienc = np.stack([encode_template(t).data for t in fixture])
+    s0 = ((12_345 * np.arange(INTEROP_ENTRIES)[:, None] + 7 * np.arange(BITS) + 1)
+          % 65536).astype(np.uint16)  # the fixture's closed-form share 0
+    s1 = ienc - s0  # wrapping u16
+    query = interop_fixture(INTEROP_QUERY)
+    qp, qm = query.pattern.data[None], query.mask.data[None]
+    rec = native.share_sum([ShareEngine(s, device=dev).dots(qp, qm)[0] for s in (s0, s1)])
+    den = MasksEngine(imsk, device=dev).dots(qm)[0]
+    check(rec[1].tolist() == FROZEN_DIST_RECORD_E1, "interop: entry 1's distance record")
+    check(den[1].tolist() == FROZEN_DEN_RECORD_E1, "interop: entry 1's denominator record")
+    check([decode_distance(rec[e], den[e]) for e in range(INTEROP_ENTRIES)]
+          == FROZEN_DISTANCES, "interop: the 8 decoded distances")
+    (won,) = PlaintextEngine(ipat, imsk, device=dev).match(qp, qm)
+    check((won.index, won.distance) == (int(np.argmin(FROZEN_DISTANCES)), min(FROZEN_DISTANCES)),
+          "interop: PlaintextEngine.match (kernel (b)) at the frozen minimum")
+    kw = key_tensor(bytes(range(32)), dev)
+    inv = torch.from_numpy(np.argsort(k_permutation())).to(dev)
+    for (sid, row), want4 in FROZEN_KEYED_ROWS.items():
+        row0 = min(row, 0xFFFFFFFF)
+        natural = planes_to_shares(*share_planes_kernel(kw, sid, row0, row - row0 + 1))[-1]
+        check(natural[inv][:4].tolist() == want4,
+              f"interop: keystream row (stream {sid}, row {row}) from kernel (d)")
+    print(f"conformance interop: ShareEngine + MasksEngine records and the "
+          f"{INTEROP_ENTRIES} decoded distances equal the frozen ones; match (b) at "
+          f"{won.distance!r}; {len(FROZEN_KEYED_ROWS)} keystream rows from (d)")
+
+    # ---- the library walkthrough
+    need = 6 * demo_db * BITS * 2  # the shares, the encoding, two refresh copies
+    avail = host_available_bytes()
+    if need > avail:
+        print(f"conformance demo: cut to {DEMO_DB_CUT} entries from {demo_db} "
+              f"({avail / 1e9:.1f} GB available on the host, {need / 1e9:.1f} GB needed)")
+        demo_db = DEMO_DB_CUT
+    spec = importlib.util.spec_from_file_location(
+        "api_demo_torch", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "examples", "api_demo_torch.py"))
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    t0 = time.perf_counter()
+    ms = demo.main(["--device", str(dev), "--db", str(demo_db), "--batch", str(DEMO_BATCH)])
+    print(f"time api_demo_torch N={demo_db} B={DEMO_BATCH}: {time.perf_counter() - t0:.1f} s; "
+          f"steps (ms, host wall): {json.dumps({k: round(v, 1) for k, v in ms.items()})} "
+          f"[{card}]")
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+
+    launches = {fn.__name__: fn.launches for fn in counted}
+    print(f"launches in the conformance phase: {json.dumps(launches)}")
+    if on_card:
+        check(all(v > 0 for v in launches.values()),
+              "conformance: kernels (a), (b), (c) and (d) each launched")
+    print(f"conformance phase: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1665,8 +1899,10 @@ def main() -> int:
     check(all(v > 0 for v in sharded.values()), "every kernel launched on the sharded paths")
     cli = cli_phase(dev, args.seed, card)
     print(f"launches in the cli phase (this process): {json.dumps(cli)}")
-    for k in kernels:  # the main paths' launches: single-card, sharded, served, cli
-        k["launches"] += sharded[k["name"]] + cli[k["name"]]
+    conf = conformance_phase(dev, card)
+    # the main paths' launches: single-card, sharded, served, cli, conformance
+    for k in kernels:
+        k["launches"] += sharded[k["name"]] + cli[k["name"]] + conf[k["name"]]
         k["max_abs_err"] = max(k["max_abs_err"], shard_err.get(k["name"], 0))
         if k["name"] == "share_planes_kernel":
             k["launches"] += served

@@ -38,10 +38,13 @@ from mpc_iris_tpu_torch.constants import (
     BITS,
     BITS_BYTES,
     COLS,
+    ENCODED_BYTES,
     MAX_ROTATION,
     N_ROTATIONS,
     ROTATIONS,
     ROWS,
+    ROW_BYTES,
+    TEMPLATE_BYTES,
 )
 from mpc_iris_tpu_torch.types import Bits, EncodedBits, Template
 
@@ -51,10 +54,13 @@ __all__ = [
     "BITS",
     "BITS_BYTES",
     "COLS",
+    "ENCODED_BYTES",
     "MAX_ROTATION",
     "N_ROTATIONS",
     "ROTATIONS",
     "ROWS",
+    "ROW_BYTES",
+    "TEMPLATE_BYTES",
     "Bits",
     "EncodedBits",
     "Template",

@@ -2,9 +2,11 @@
 audit and MPC paths (counterpart of ``mpc_iris_tpu/ops``).
 
 - ``encode``, ``rotations``: query preparation (uint8 / int8 tensors), the
-  u16 ring encoding and the device share split
-- ``decode``: exact fraction selection in int32, the host f64 decode and
-  the exact threshold compare
+  u16 ring encoding, the device share split and the per-template host
+  encoding (``encode_template``, ``decode_encoded``)
+- ``decode``: exact fraction selection in int32, the host f64 decode
+  (``decode_distance``, batched ``decode_distance_batch_np``) and the exact
+  threshold compare
 - ``dot``: int8 products (``torch._int_mm``) and the exact mod-2^16 share dots
 - ``chacha``: ChaCha20 share-stream regeneration, kernel
   ``share_planes_kernel`` (csrc/chacha_planes.cu) and its plain version
@@ -24,6 +26,7 @@ version only for CPU tensors. Nothing here builds or imports a kernel at import.
 """
 
 from mpc_iris_tpu_torch.ops.decode import (
+    decode_distance,
     decode_distance_batch_np,
     fraction_argmin,
     fraction_min_rotations,
@@ -34,10 +37,16 @@ from mpc_iris_tpu_torch.ops.decode import (
     under_threshold_mask_np,
 )
 from mpc_iris_tpu_torch.ops.chacha import share_planes_kernel, share_planes_natural
-from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, dot_share_batch
+from mpc_iris_tpu_torch.ops.dot import (
+    dot_bits_batch,
+    dot_share_batch,
+    planes_to_shares,
+    shares_to_planes,
+)
 from mpc_iris_tpu_torch.ops.encode import (
     encode_grid_i8,
     encode_grid_u16,
+    encode_template,
     pack_bits,
     share_split_device,
     unpack_bits,
@@ -63,11 +72,13 @@ from mpc_iris_tpu_torch.ops.select import (
 from mpc_iris_tpu_torch.ops.self_test import kernel_self_test
 
 __all__ = [
+    "decode_distance",
     "decode_distance_batch_np",
     "dot_bits_batch",
     "dot_share_batch",
     "encode_grid_i8",
     "encode_grid_u16",
+    "encode_template",
     "expand_rotations",
     "expand_rotations_flat",
     "fold_candidates",
@@ -82,6 +93,7 @@ __all__ = [
     "match_packed_small_b_reference",
     "numerators",
     "pack_bits",
+    "planes_to_shares",
     "prepare_query_planes",
     "rotate_grid",
     "running_min",
@@ -90,6 +102,7 @@ __all__ = [
     "share_planes_kernel",
     "share_planes_natural",
     "share_split_device",
+    "shares_to_planes",
     "small_b_ok",
     "under_threshold_mask_np",
     "unpack_bits",

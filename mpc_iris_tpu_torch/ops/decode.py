@@ -128,6 +128,24 @@ def chunk_winners(dot, den, rows_per_query: int, index_offset: int = 0):
 # ----------------------------------------------------------------- host decode (f64)
 
 
+def decode_distance(dots, dens) -> float:
+    """Reference-exact f64 decode of one entry's 31 (dot, den) pairs
+    (src/lib.rs:97-107; copy of ``mpc_iris_tpu.ops.decode.decode_distance``):
+    the minimum of ``((den - dot) mod 2^16 >> 1) / den`` over the rotations,
+    NaN (0/0) skipped as Rust's ``f64::min`` skips it; +inf when every den
+    is 0."""
+    dots = np.asarray(dots, dtype=np.uint16).astype(np.int64)
+    dens = np.asarray(dens, dtype=np.uint16).astype(np.int64)
+    n = ((dens - dots) & 0xFFFF) >> 1
+    best = float("inf")
+    for nr, dr in zip(n.tolist(), dens.tolist()):
+        with np.errstate(invalid="ignore", divide="ignore"):
+            v = float(np.float64(nr) / np.float64(dr))
+        if v < best:  # NaN compares false, so it is skipped
+            best = v
+    return best
+
+
 def decode_distance_batch_np(dots, dens) -> np.ndarray:
     """Host decode: [N, 31] u16 dots & dens -> [N] f64 distances.
 

@@ -4,6 +4,8 @@
 Torch has no uint16 add, shift or compare on the CPU, so the u16 ring encoding
 and the share split compute in int32 with ``& 0xFFFF``: a u16 value on the
 device is an int32 in [0, 2^16), and the host edge turns it into ``np.uint16``.
+The per-template host functions at the end (``encode_template``,
+``decode_encoded``, ``template_grids``) are numpy.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 
 from mpc_iris_tpu_torch.constants import BITS
 from mpc_iris_tpu_torch.ops.chacha import k_permutation, key_tensor, share_planes_kernel
+from mpc_iris_tpu_torch.types import Bits, EncodedBits, Template
 
 
 def unpack_bits(packed: torch.Tensor) -> torch.Tensor:
@@ -111,3 +114,32 @@ def share_split_device(patterns_packed, masks_packed, n_shares: int, key,
         for i, s in enumerate(keep):
             torch.from_numpy(out[i, start:end].view(np.int16)).copy_(sh[s])
     return out
+
+
+def encode_template(template: Template) -> EncodedBits:
+    """Host oracle: a Template's u16 ring vector ``mask - 2 * (pattern & mask)``,
+    wrapping (reference ``encode``, src/lib.rs:16-26; copy of
+    ``encode.encode_template``)."""
+    p = np.unpackbits(template.pattern.data, bitorder="little").astype(np.uint16)
+    m = np.unpackbits(template.mask.data, bitorder="little").astype(np.uint16)
+    return EncodedBits(m - np.uint16(2) * (p & m))
+
+
+def decode_encoded(enc: EncodedBits) -> Template:
+    """Invert :func:`encode_template`: mask bit = ``enc != 0``, pattern bit =
+    ``enc == 0xFFFF`` (copy of ``encode.decode_encoded``). Pattern bits under
+    a zero mask are lost in the encoding and decode to 0."""
+    e = enc.data
+    return Template(Bits(np.packbits(e == 0xFFFF, bitorder="little")),
+                    Bits(np.packbits(e != 0, bitorder="little")))
+
+
+def template_grids(template: Template, device=None):
+    """(pattern, mask) as {0,1} uint8 [64, 200] grids: numpy arrays, or
+    tensors on ``device`` when one is given (the counterpart of
+    ``encode.template_grids``'s ``xp``)."""
+    p = template.pattern.grid().astype(np.uint8)
+    m = template.mask.grid().astype(np.uint8)
+    if device is not None:
+        return torch.from_numpy(p).to(device), torch.from_numpy(m).to(device)
+    return p, m

@@ -574,3 +574,45 @@ def test_utils_copies_equal_jax_package():
     p.finish()
     assert buf.getvalue().startswith("x: 4 /4")
     assert "torch" in config.device_banner([torch.device("cpu")])
+    s = stats.summarize_timings(samples)
+    assert stats.format_summary(s, "ms", 1e3) == ref_stats.format_summary(s, "ms", 1e3)
+
+
+class TestStatsHistory:
+    """tests/test_bench_contract.py::TestStats's ledger cases through the
+    port's ``utils.stats``, whose default ledger is its own file."""
+
+    def test_history_ledger_roundtrip(self, tmp_path, monkeypatch):
+        from mpc_iris_tpu_torch.utils import stats
+
+        monkeypatch.delenv("MPC_IRIS_NO_BENCH_HISTORY", raising=False)
+        path = str(tmp_path / "hist.jsonl")
+        e1 = {"key": "packed/db1024/b8/c512", "value": 100.0,
+              "date": "2026-08-19"}
+        assert stats.append_history(e1, path) is None  # no prior entry
+        e2 = {"key": "packed/db1024/b8/c512", "value": 103.0,
+              "date": "2026-08-20"}
+        prev = stats.append_history(e2, path)
+        assert prev["value"] == 100.0
+        line = stats.delta_line(e2, prev)
+        assert "+3.0%" in line and "2026-08-19" in line
+        # other keys don't cross-match
+        e3 = {"key": "share/db1024/b8/c512", "value": 50.0}
+        assert stats.append_history(e3, path) is None
+        assert len(stats.load_history(path)) == 3
+
+    def test_history_disabled_by_env(self, tmp_path, monkeypatch):
+        from mpc_iris_tpu_torch.utils import stats
+
+        monkeypatch.setenv("MPC_IRIS_NO_BENCH_HISTORY", "1")
+        path = str(tmp_path / "hist.jsonl")
+        assert stats.append_history({"key": "k", "value": 1.0}, path) is None
+        assert stats.load_history(path) == []
+
+    def test_default_ledger_is_the_ports_own(self):
+        from mpc_iris_tpu.utils import stats as ref_stats
+        from mpc_iris_tpu_torch.utils import stats
+
+        assert stats.HISTORY_PATH.endswith("docs/BENCH_HISTORY_torch.jsonl")
+        assert stats.HISTORY_PATH != ref_stats.HISTORY_PATH
+        assert os.path.dirname(stats.HISTORY_PATH) == os.path.dirname(ref_stats.HISTORY_PATH)

@@ -140,6 +140,72 @@ def test_host_decode_copies(rng):
         assert tdec.fraction_to_f64(n, d) == jdec.fraction_to_f64(n, d)
 
 
+def test_encode_template_equals_jax(rng):
+    from mpc_iris_tpu.types import Template as JaxTemplate
+    from mpc_iris_tpu_torch.types import Template
+
+    t = Template.random(rng)
+    jt = JaxTemplate.from_bytes(t.to_bytes())
+    enc = tenc.encode_template(t)
+    assert enc.data.dtype == np.uint16
+    np.testing.assert_array_equal(enc.data, jenc.encode_template(jt).data)
+    assert tenc.decode_encoded(enc).to_bytes() == jenc.decode_encoded(
+        jenc.encode_template(jt)).to_bytes()
+    for got, want in zip(tenc.template_grids(t), jenc.template_grids(jt)):
+        assert got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+    for got, want in zip(tenc.template_grids(t, device="cpu"), jenc.template_grids(jt)):
+        assert got.dtype == torch.uint8 and got.shape == (ROWS, COLS)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_decrypt_roundtrip(rng):
+    """tests/test_ops.py::TestEncode::test_decrypt_roundtrip through the port:
+    encode -> decode recovers the mask exactly and the pattern up to the
+    masked-out bits."""
+    from mpc_iris_tpu_torch.types import Bits, Template
+
+    t = Template.random(rng)
+    back = tenc.decode_encoded(tenc.encode_template(t))
+    assert back.mask == t.mask
+    assert (back.pattern & back.mask) == (t.pattern & t.mask)
+    assert (back.pattern & ~back.mask) == Bits()
+
+
+def test_planes_roundtrip(rng):
+    """tests/test_ops.py::TestDotKernels::test_planes_roundtrip through the
+    port (its planes are int8 offset by -128; the round trip is exact)."""
+    from mpc_iris_tpu_torch.ops import planes_to_shares, shares_to_planes
+
+    s = rng.integers(0, 1 << 16, size=(4, 12_800), dtype=np.uint16)
+    lo, hi = shares_to_planes(_t(s.view(np.int16)))
+    assert lo.dtype == hi.dtype == torch.int8
+    np.testing.assert_array_equal(planes_to_shares(lo, hi).numpy(), s)
+
+
+def test_decode_distance_reference_semantics():
+    """tests/test_ops.py::TestDecode::test_decode_distance_reference_semantics
+    through the port: all 0/0 folds to +inf; one valid rotation decides."""
+    dots = np.zeros(31, dtype=np.uint16)
+    dens = np.zeros(31, dtype=np.uint16)
+    assert tdec.decode_distance(dots, dens) == float("inf")
+    dens[3] = 100
+    dots[3] = 40  # num = 30, d = 100 -> 0.3
+    assert tdec.decode_distance(dots, dens) == 0.3
+
+
+def test_decode_batch_matches_scalar(rng):
+    """tests/test_ops.py::TestDecode::test_decode_batch_matches_scalar
+    through the port, and the scalar decode equal to the JAX package's."""
+    dots = rng.integers(0, 1 << 16, size=(50, 31), dtype=np.uint16)
+    dens = rng.integers(0, 12801, size=(50, 31), dtype=np.uint16)
+    dens[7] = 0  # an all-invalid row
+    batch = tdec.decode_distance_batch_np(dots, dens)
+    for i in range(50):
+        got = tdec.decode_distance(dots[i], dens[i])
+        assert batch[i] == got == jdec.decode_distance(dots[i], dens[i]), i
+
+
 def test_dot_bits_batch_and_self_test(rng):
     q = rng.integers(-1, 2, size=(17, 64)).astype(np.int8)
     db = rng.integers(-1, 2, size=(9, 64)).astype(np.int8)
