@@ -27,6 +27,16 @@ NVIDIA GPU, at full size, and check them.
   against its plain version bit for bit (a whole chunk, the three u64
   nonce-carry positions, stream id 0xFFFFFFFE, a high-bit key) and the
   RFC 8439 section 2.3.2 block from the kernel itself;
+- drives the fused-regen probe kernels (``probe_phase``; the families of
+  scripts/fused_mm_regen_probe_torch.py): ``int8_gemm`` (csrc/int8_gemm.cu)
+  at the scan's B = 128 products of one chunk and the keyed B = 8 products,
+  bit-equal to its plain version and to ``torch._int_mm``; both variants of
+  ``keyed_share_dots`` (csrc/keyed_share_dot.cu, ChaCha20 fused with the
+  share products) on a 16,384-row chunk at B = 1 and 8 and at the three u64
+  carry positions, bit-equal to the plain version; then the keyed party's
+  1,048,576-entry pass through each fused variant and through ``int8_gemm``
+  at B = 1 and 8, each checksum equal to ``fold_pass_fn``'s; the times beside
+  ``torch._int_mm`` and the unfused chunk (kernel (d), then the products);
 - serves one 3-party MPC query at 262,144 entries (``bench.py --mode share``'s
   default) on the dense DB's templates: parties 0 and 1 keyed (half their
   chunks resident, the rest regenerated per query), party 2 a
@@ -109,7 +119,8 @@ NVIDIA GPU, at full size, and check them.
   imported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-card, the one before that the kernels as JSON (with each kernel's bound).
+card, the one before that the kernels as JSON (seven kernels, each with its
+bound).
 Exits nonzero, printing no result, without a CUDA card or when any build,
 launch or check fails.
 
@@ -171,6 +182,13 @@ from mpc_iris_tpu_torch.ops.decode import (
 )
 from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, planes_to_shares
 from mpc_iris_tpu_torch.ops.encode import encode_template, share_split_device
+from mpc_iris_tpu_torch.ops.gemm import int8_gemm, int8_gemm_reference
+from mpc_iris_tpu_torch.ops.keyed_dot import (
+    VARIANTS,
+    keyed_pass_checksum,
+    keyed_share_dots,
+    keyed_share_dots_reference,
+)
 from mpc_iris_tpu_torch.ops.packed_match import (
     _launch_plan,
     fractions_packed_small_b,
@@ -483,6 +501,128 @@ def keyed_phase(dev: torch.device, qpat, qmsk, n: int, card: str) -> int:
         print(f"time share products + reply block, one {c}-entry chunk B={bb}: {m_ms:.4f} ms "
               f"(CUDA events) [{card}]")
     return launches
+
+
+def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
+    """The fused-regen probe kernels (scripts/fused_mm_regen_probe_torch.py's
+    families): ``int8_gemm`` at the products of the scan (B = 128, one
+    chunk) and of the keyed pass (B = 8), and both ``keyed_share_dots``
+    variants on a 16,384-row chunk at B = 1 and 8 and at the three u64
+    carry positions, each bit-equal to its plain version; then the keyed
+    party's whole 1,048,576-entry pass through each fused variant and through
+    ``int8_gemm`` (the counted run), its checksum equal to
+    ``KeyedShareEngine.fold_pass_fn``'s; then the times, beside
+    ``torch._int_mm`` and the unfused chunk. Returns the three kernels'
+    entries of the kernels line."""
+    t_phase = time.perf_counter()
+    kw = key_tensor(SHARE_KEY, dev)
+    chunk = packed.chunk
+    q_nat = {bb: _queries_to_natural_k(planes(qpat[:bb], qmsk[:bb], dev)[0]).reshape(
+        31 * bb, BITS) for bb in (1, 8)}
+    lo, _ = share_planes_kernel(kw, 0, 0, chunk)
+    q_enc = planes(qpat[:128], qmsk[:128], dev)[0]
+    enc0, _ = _unpack_encode_chunk(packed.db_pat[0], packed.db_msk[0])
+    products = {"keyed B=8": (q_nat[8], lo),
+                "scan B=128": (_fused_rows(q_enc), enc0.contiguous())}
+    gemm_err = 0
+    for what, (a, b) in products.items():
+        got = int8_gemm(a, b)
+        err = int((got - int8_gemm_reference(a, b)).abs().max())
+        check(err == 0 and torch.equal(got, torch._int_mm(a, b.T)),
+              f"int8_gemm {what} {list(a.shape)} x {list(b.shape)}: kernel equals plain "
+              "version and torch._int_mm")
+        gemm_err = max(gemm_err, err)
+    fused_err = dict.fromkeys(VARIANTS, 0)
+    cases = [(0, 0, chunk, 1), (0, 0, chunk, 8)] + [
+        (0xFFFFFFFE, r0, 128, 8) for r0 in (0xFFFFFF80, 0xFFFFFFC0, 0xFFFFFFF0)]
+    for sid, row0, n, bb in cases:
+        want = keyed_share_dots_reference(q_nat[bb], kw, sid, row0, n)
+        for v in VARIANTS:
+            err = int((keyed_share_dots(q_nat[bb], kw, sid, row0, n, variant=v) - want)
+                      .abs().max())
+            check(err == 0, f"keyed_share_dots[{v}] sid={sid:#x} row0={row0:#x} n={n} "
+                  f"B={bb}: kernel equals plain version")
+            fused_err[v] = max(fused_err[v], err)
+    print("kernels int8_gemm (the scan's B = 128 products, the keyed B = 8 products) and "
+          "keyed_share_dots (serial, pipelined; a chunk at B = 1 and 8, the three carry "
+          "positions at stream id 0xFFFFFFFE): equal to their plain versions")
+
+    # ---- the main path of the probe: the keyed pass through each family, counted
+    keyed = KeyedShareEngine(SHARE_KEY, 0, KEYED_DB, device=dev, hbm_budget=0)
+    want = {bb: int(keyed.fold_pass_fn()(planes(qpat[:bb], qmsk[:bb], dev)[0]))
+            for bb in (1, 8)}
+    int8_gemm.launches = 0
+    keyed_share_dots.launches = dict.fromkeys(VARIANTS, 0)
+    families = ("fused-serial", "fused-pipe", "gemm")
+    sums = {(f, bb): keyed_pass_checksum(f, q_nat[bb], kw, 0, KEYED_DB, keyed.chunk)
+            for f in families for bb in (1, 8)}
+    launches = {"int8_gemm": int8_gemm.launches,
+                **{f"keyed_share_dots_{v}": keyed_share_dots.launches[v] for v in VARIANTS}}
+    print(f"launches in the probe's keyed passes: {json.dumps(launches)}")
+    check(dev.type == "cpu" or all(v > 0 for v in launches.values()),
+          "every probe kernel launched on its path")
+    for (f, bb), got in sums.items():
+        check(got == want[bb], f"keyed pass {f} N={KEYED_DB} B={bb}: checksum {got:#010x} "
+              f"equals fold_pass_fn's {want[bb]:#010x}")
+    print(f"keyed pass N={KEYED_DB} through fused-serial, fused-pipe and gemm at B=1, 8: "
+          f"checksums equal fold_pass_fn's ({want[1]:#010x}, {want[8]:#010x})")
+    for bb in (1, 8):
+        q = planes(qpat[:bb], qmsk[:bb], dev)[0]
+        times = {"fold_pass_fn": wall_ms(lambda: keyed.fold_pass_fn()(q), 3)}
+        times.update({f: wall_ms(lambda: keyed_pass_checksum(f, q_nat[bb], kw, 0, KEYED_DB,
+                                                             keyed.chunk), 3)
+                      for f in families})
+        print(f"time keyed pass N={KEYED_DB} B={bb} (median of 3, host wall): "
+              + ", ".join(f"{f} {ms:.3f} ms" for f, ms in times.items()) + f" [{card}]")
+    del keyed
+
+    # ---- times (CUDA events)
+    rows = {}
+    for what, (a, b) in products.items():
+        k_ms = cuda_ms(lambda: int8_gemm(a, b), 20)
+        l_ms = cuda_ms(lambda: torch._int_mm(a, b.T), 20)
+        p_ms = cuda_ms(lambda: int8_gemm_reference(a, b), 2)
+        (m, k), n = a.shape, b.shape[0]
+        b_ms, b_by = bound(m * k + n * k + 4 * m * n, 2 * m * n * k, INT8_OPS)
+        rows[what] = (k_ms, l_ms, p_ms, b_ms, b_by)
+        print(f"time kernel int8_gemm {what} [{m}, {k}] x [{n}, {k}]: {k_ms:.4f} ms, "
+              f"torch._int_mm {l_ms:.4f} ms, plain {p_ms:.3f} ms; bound {b_ms:.4f} ms "
+              f"({b_by}), {b_ms / k_ms:.1%} of it [{card}]")
+    entries = []
+    k_ms, l_ms, p_ms, b_ms, b_by = rows["scan B=128"]
+    entries.append({"name": "int8_gemm", "route": "cuda",
+                    "source": "mpc_iris_tpu_torch/csrc/int8_gemm.cu",
+                    "replaces": "scripts/mm_probe.py:49",
+                    "launches": launches["int8_gemm"], "max_abs_err": gemm_err,
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": l_ms})
+    fused = {}
+    for bb in (1, 8):
+        q = q_nat[bb]
+        u_ms = cuda_ms(lambda: _share_dots_chunk(q.reshape(bb, 31, BITS),
+                                                 *share_planes_kernel(kw, 0, 0, chunk)), 10)
+        m = 31 * bb
+        # reads the query once, writes the int32 dots; the two int8 products;
+        # CHACHA_OPS int32 ALU operations per 64-byte block, 400 a row
+        b_ms, b_by = max(bound(m * BITS + 4 * m * chunk + 32, 4 * m * chunk * BITS, INT8_OPS),
+                         bound(0, chunk * 400 * CHACHA_OPS, ALU_OPS))
+        for v in VARIANTS:
+            fused[v, bb] = cuda_ms(lambda: keyed_share_dots(q, kw, 0, 0, chunk, variant=v), 20)
+            print(f"time kernel keyed_share_dots[{v}] one {chunk}-row chunk B={bb}: "
+                  f"{fused[v, bb]:.4f} ms; unfused chunk (kernel (d), then the share products "
+                  f"and reply block) {u_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+                  f"{b_ms / fused[v, bb]:.1%} of it [{card}]")
+    p_ms = cuda_ms(lambda: keyed_share_dots_reference(q_nat[8], kw, 0, 0, chunk), 2)
+    for v in VARIANTS:
+        entries.append({"name": f"keyed_share_dots_{v}", "route": "cuda",
+                        "source": "mpc_iris_tpu_torch/csrc/keyed_share_dot.cu",
+                        "replaces": "scripts/fused_regen_probe.py:"
+                                    + ("113" if v == "serial" else "131"),
+                        "launches": launches[f"keyed_share_dots_{v}"],
+                        "max_abs_err": fused_err[v], "ms": fused[v, 8], "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    print(f"probe phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 def to_card(stream, dev: torch.device) -> torch.Tensor:
@@ -1601,11 +1741,12 @@ def main() -> int:
         if "Compiling entry function" in line:
             kernel = next((k for k in ("select_part_kernel", "packed_match_kernel",
                                        "packed_fractions_kernel", "fold_parts_kernel",
-                                       "chacha_planes_kernel")
+                                       "chacha_planes_kernel", "int8_gemm_kernel",
+                                       "keyed_share_dot_kernel")
                                if k in line), line)
-            config = re.search(r"kernelILi(\d+)ELi(\d+)E", line)
-            if config:  # the packed kernels' <queries per group, M tiles>
-                kernel += f"<{config[1]}, {config[2]}>"
+            config = re.findall(r"L[ib](\d+)E", line)
+            if config:  # the template arguments
+                kernel += f"<{', '.join(config)}>"
         elif "Used" in line or "spill stores" in line or "C7512" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
 
@@ -1880,6 +2021,8 @@ def main() -> int:
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None})
 
+    kernels += probe_phase(dev, packed, qpat, qmsk, card)
+
     # the sharded phase, after the single-card engines it does not need
     del dense, eng, requests, audit_requests
     torch.cuda.empty_cache()
@@ -1902,7 +2045,8 @@ def main() -> int:
     conf = conformance_phase(dev, card)
     # the main paths' launches: single-card, sharded, served, cli, conformance
     for k in kernels:
-        k["launches"] += sharded[k["name"]] + cli[k["name"]] + conf[k["name"]]
+        k["launches"] += (sharded.get(k["name"], 0) + cli.get(k["name"], 0)
+                          + conf.get(k["name"], 0))
         k["max_abs_err"] = max(k["max_abs_err"], shard_err.get(k["name"], 0))
         if k["name"] == "share_planes_kernel":
             k["launches"] += served

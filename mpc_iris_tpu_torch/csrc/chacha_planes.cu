@@ -28,23 +28,14 @@
 
 #include <cstdint>
 
+#include "chacha.cuh"
+
 namespace mpc_iris {
 namespace {
 
-constexpr int kBlocksPerRow = 400;           // 400 x 64 bytes = one 25,600-byte row
+constexpr int kBlocksPerRow = chacha::kBlocksPerRow;
 constexpr int kCols = 2 * 16 * kBlocksPerRow;  // 12,800 u16 lanes
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t rotl(uint32_t x, int k) {
-  return __funnelshift_l(x, x, k);
-}
-
-__device__ __forceinline__ void quarter(uint32_t& a, uint32_t& b, uint32_t& c, uint32_t& d) {
-  a += b; d = rotl(d ^ a, 16);
-  c += d; b = rotl(b ^ c, 12);
-  a += b; d = rotl(d ^ a, 8);
-  c += d; b = rotl(b ^ c, 7);
-}
 
 // key: uint32[8] (device); lo, hi: int8 [n_rows][12800]. Thread t covers
 // row t / 400, block t % 400.
@@ -55,32 +46,18 @@ chacha_planes_kernel(const uint32_t* __restrict__ key, uint32_t sid, uint32_t ro
   if (t >= n_rows * kBlocksPerRow) return;
   const long long row = t / kBlocksPerRow;
   const uint32_t b = static_cast<uint32_t>(t - row * kBlocksPerRow);
-  const uint32_t off = static_cast<uint32_t>(row);
-  const uint32_t rows = row0 + off;
-  const uint32_t carry = rows < off ? 1u : 0u;
-
-  uint32_t in[16] = {0x61707865u, 0x3320646Eu, 0x79622D32u, 0x6B206574u,
-                     key[0], key[1], key[2], key[3], key[4], key[5], key[6], key[7],
-                     b, sid, rows, carry};
+  uint32_t kw[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) kw[i] = key[i];
+  uint32_t in[16];
   uint32_t x[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) x[i] = in[i];
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    quarter(x[0], x[4], x[8], x[12]);
-    quarter(x[1], x[5], x[9], x[13]);
-    quarter(x[2], x[6], x[10], x[14]);
-    quarter(x[3], x[7], x[11], x[15]);
-    quarter(x[0], x[5], x[10], x[15]);
-    quarter(x[1], x[6], x[11], x[12]);
-    quarter(x[2], x[7], x[8], x[13]);
-    quarter(x[3], x[4], x[9], x[14]);
-  }
+  chacha::init_state(in, kw, sid, row0, static_cast<uint32_t>(row), b);
+  chacha::block(in, x);
   int8_t* lo_row = lo + row * kCols + b;
   int8_t* hi_row = hi + row * kCols + b;
 #pragma unroll
   for (int w = 0; w < 16; ++w) {
-    const uint32_t v = x[w] + in[w];
+    const uint32_t v = x[w];
 #pragma unroll
     for (int l = 0; l < 2; ++l) {
       const uint32_t lane = v >> (16 * l);

@@ -17,8 +17,12 @@ audit and MPC paths (counterpart of ``mpc_iris_tpu/ops``).
 - ``packed_match``: kernels ``match_packed_small_b`` (csrc/packed_match.cu)
   and ``fractions_packed_small_b`` (csrc/packed_fractions.cu) and their
   plain versions
+- ``gemm``, ``keyed_dot``: the fused-regen probe kernels ``int8_gemm``
+  (csrc/int8_gemm.cu) and ``keyed_share_dots`` (csrc/keyed_share_dot.cu,
+  ChaCha20 fused with the share products) and their plain versions; no
+  engine calls them (scripts/fused_mm_regen_probe_torch.py measures them)
 - ``self_test``: the runtime canary of the int8 product, the share dot and
-  every kernel
+  the engines' kernels
 - ``_build``: compiles csrc/*.cu with nvcc and loads it with ctypes
 
 A kernel wrapper launches its kernel for CUDA tensors and takes the plain

@@ -47,6 +47,13 @@ _SIGNATURES = {
     "chacha_planes_launch": (
         [_P, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _P, _P, _P],
         ctypes.c_int),
+    "int8_gemm_launch": (
+        [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+        ctypes.c_int),
+    "keyed_share_dots_launch": (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_uint32,
+         ctypes.c_uint32, ctypes.c_int, ctypes.c_int, _P, _P],
+        ctypes.c_int),
 }
 
 

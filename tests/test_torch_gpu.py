@@ -15,6 +15,8 @@ from mpc_iris_tpu_torch.models import KeyedShareEngine, MasksEngine, PlaintextEn
 from mpc_iris_tpu_torch.models.engines import _pad_chunks, prepare_query_planes
 from mpc_iris_tpu_torch.ops import chacha as tcha
 from mpc_iris_tpu_torch.ops import dot as tdot
+from mpc_iris_tpu_torch.ops import gemm as tgemm
+from mpc_iris_tpu_torch.ops import keyed_dot as tkd
 from mpc_iris_tpu_torch.ops import packed_match as tpm
 from mpc_iris_tpu_torch.ops import select as tsel
 from mpc_iris_tpu_torch.ops.encode import share_split_device
@@ -155,6 +157,42 @@ def test_share_planes_kernel(cuda, row0, n_rows):
         tcha.share_planes_kernel(kw.to(torch.int64), 0, 0, 1)
     with pytest.raises(ValueError):
         tcha.share_planes_kernel(kw, 0, 0, 0)
+
+
+# Ragged shapes of both operands (no tile of either divides them) and every
+# tile width of the first operand (32, 64, 128 and more than one tile).
+@pytest.mark.parametrize("m,n", [(1, 1), (31, 300), (64, 256), (200, 1000), (300, 513)])
+def test_int8_gemm_kernel(cuda, m, n):
+    rng = np.random.default_rng(7 * m + n)
+    q = torch.from_numpy(rng.integers(-128, 128, (m, 12_800), dtype=np.int8)).to(cuda)
+    db = torch.from_numpy(rng.integers(-128, 128, (n, 12_800), dtype=np.int8)).to(cuda)
+    before = tgemm.int8_gemm.launches
+    got = tgemm.int8_gemm(q, db)
+    torch.cuda.synchronize()
+    assert tgemm.int8_gemm.launches == before + 1
+    assert torch.equal(got, tgemm.int8_gemm_reference(q, db))
+    with pytest.raises(ValueError):  # K not a multiple of the kernel's stage
+        tgemm.int8_gemm(q[:, :96].contiguous(), db[:, :96].contiguous())
+
+
+# Every block shape of the fused kernel (query rows up to 32, 64, 128, 256
+# and past them), ragged DB rows, and the u64 nonce carry inside the chunk.
+@pytest.mark.parametrize("variant", tkd.VARIANTS)
+@pytest.mark.parametrize("m,n_rows,row0", [(24, 100, 0xFFFFFFD0), (31, 16_384, 0),
+                                           (64, 300, 0xFFFFFF80), (100, 129, 0xFFFFFFC0),
+                                           (248, 1000, 7 * 256), (300, 513, 0xFFFFFFF0)])
+def test_keyed_share_dots_kernel(cuda, variant, m, n_rows, row0):
+    rng = np.random.default_rng(m + n_rows)
+    q = torch.from_numpy(rng.integers(-1, 2, (m, 12_800), dtype=np.int8)).to(cuda)
+    kw = tcha.key_tensor(bytes(range(0x80, 0xA0)), cuda)
+    before = dict(tkd.keyed_share_dots.launches)
+    got = tkd.keyed_share_dots(q, kw, 0xFFFFFFFE, row0, n_rows, variant=variant)
+    torch.cuda.synchronize()
+    assert tkd.keyed_share_dots.launches[variant] == before[variant] + 1
+    # the plain version's int8 product on the card takes row counts % 8 == 0:
+    # its rows past n_rows are the next rows of the stream, cut off after
+    want = tkd.keyed_share_dots_reference(q, kw, 0xFFFFFFFE, row0, -(-n_rows // 8) * 8)
+    assert torch.equal(got, want[:, :n_rows])
 
 
 def test_share_planes_kernel_rfc8439_block(cuda):
