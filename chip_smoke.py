@@ -37,6 +37,19 @@ NVIDIA GPU, at full size, and check them.
   1,048,576-entry pass through each fused variant and through ``int8_gemm``
   at B = 1 and 8, each checksum equal to ``fold_pass_fn``'s; the times beside
   ``torch._int_mm`` and the unfused chunk (kernel (d), then the products);
+- drives the B = 1 packed-dot probe kernels and the select compare probes
+  (``b1_select_probe_phase``; scripts/b1_kernel_probe_torch.py,
+  select_variants_torch.py, select_i16_probe_torch.py): ``pk_dot`` (with
+  its epilogue; csrc/b1_packed.cu) and ``pk_select`` (kernel (b)'s
+  csrc/packed_match.cu with one query) over the 1,048,576-entry packed DB at
+  B = 1, pk_select's winner equal to kernel (b) and the unfused scan,
+  pk_dot's of the same index and fraction, both outputs bit-equal to their
+  plain versions over the whole DB; ``select_variant`` with the compares
+  i32, f32 and f32_exact at [4,096, 32,768] int32 and ``select_lanes``
+  with the int32 and int16 trees at [8,192, 32,768] int16
+  (csrc/select_probes.cu), each bit-equal to its plain version there, on a
+  tie-heavy block (tile_n 2,048 and 128) and an int16 wrap, f32 keeping the
+  pair that int32 resolves; the times beside (b) at B = 1 and (a);
 - serves one 3-party MPC query at 262,144 entries (``bench.py --mode share``'s
   default) on the dense DB's templates: parties 0 and 1 keyed (half their
   chunks resident, the rest regenerated per query), party 2 a
@@ -119,8 +132,8 @@ NVIDIA GPU, at full size, and check them.
   imported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-card, the one before that the kernels as JSON (seven kernels, each with its
-bound).
+card, the one before that the kernels as JSON (fourteen kernels, each with
+its bound).
 Exits nonzero, printing no result, without a CUDA card or when any build,
 launch or check fails.
 
@@ -151,6 +164,7 @@ import numpy as np
 import torch
 
 from mpc_iris_tpu_torch import BITS, BITS_BYTES, Bits, Template, native
+from mpc_iris_tpu_torch.benchmarks import ALU_OPS, HBM_BYTES_PER_S, INT8_OPS, card_line, cuda_ms
 from mpc_iris_tpu_torch.cli import main as cli_main
 from mpc_iris_tpu_torch.io.formats import write_templates_json
 from mpc_iris_tpu_torch.models.engines import (
@@ -167,6 +181,14 @@ from mpc_iris_tpu_torch.models.engines import (
     find_under_from_fractions,
 )
 from mpc_iris_tpu_torch.ops import _build
+from mpc_iris_tpu_torch.ops.b1_packed import (
+    pk_dot,
+    pk_dot_reference,
+    pk_dot_winner,
+    pk_select,
+    pk_select_reference,
+    prep_query,
+)
 from mpc_iris_tpu_torch.ops.chacha import (
     k_permutation,
     key_tensor,
@@ -204,6 +226,14 @@ from mpc_iris_tpu_torch.ops.scan import (
     prepare_query_planes,
 )
 from mpc_iris_tpu_torch.ops.select import select_chunk, select_chunk_reference
+from mpc_iris_tpu_torch.ops.select_probes import (
+    COMPARES,
+    TREES,
+    select_lanes,
+    select_lanes_reference,
+    select_variant,
+    select_variant_reference,
+)
 from mpc_iris_tpu_torch.parallel import (
     ShardedKeyedShareEngine,
     ShardedMasksEngine,
@@ -227,14 +257,26 @@ from mpc_iris_tpu_torch.protocol.coordinator import (
 )
 from mpc_iris_tpu_torch.protocol.party_proc import start_parties, stop_parties
 from mpc_iris_tpu_torch.protocol.wire import batched_query_bytes
-from mpc_iris_tpu_torch.smoke_data import N_PLANTED, db_rng, make_data, make_db, query_rows
+from mpc_iris_tpu_torch.smoke_data import (
+    N_PLANTED,
+    db_rng,
+    make_data,
+    make_db,
+    probe_inputs,
+    query_rows,
+    tie_case,
+)
 
-# the card's peaks (NVIDIA H100 SXM data sheet, dense): memory, int8 tensor
-# ops; and 32-bit ALU instructions on the CUDA cores (its 67 TFLOP/s float32
-# FMA peak counted per instruction)
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS = 1.979e15
-ALU_OPS = 3.35e13
+# the select probes' shapes: select_variants.py's b x n int32 and
+# select_i16_probe.py's B x N int16 (1.07 GB each); their tie-heavy block
+S1_SHAPE = (128, 32_768)
+S2_SHAPE = (256, 32_768)
+LANES_OUT = 3 * 128  # select_lanes' int32 winners a query
+TIE_SHAPE = (64, 8_192)
+# int32 operations a compare of the select probes (products, compares,
+# validity, selects), and the subtract and shift of an element's numerator
+COMPARE_OPS = {"i32": 10, "f32": 14, "f32_exact": 28}
+NUMERATOR_OPS = 2
 # int32 operations of one 64-byte ChaCha20 block: 20 rounds x 4 quarter
 # rounds x 12 (4 add, 4 xor, 4 rotate), and the 16 adds of the input
 CHACHA_OPS = 20 * 4 * 12 + 16
@@ -322,21 +364,6 @@ DEMO_DB, DEMO_DB_CUT, DEMO_BATCH = 262_144, 65_536, 8
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events, after
-    one warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -622,6 +649,146 @@ def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
                         "max_abs_err": fused_err[v], "ms": fused[v, 8], "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     print(f"probe phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card: str) -> list:
+    """The B = 1 packed-dot probe kernels (scripts/b1_kernel_probe_torch.py)
+    and the select compare probes (scripts/select_variants_torch.py,
+    select_i16_probe_torch.py). The counted run: ``pk_dot`` (+ its epilogue)
+    and ``pk_select`` over the whole packed DB viewed as [N, 1600] at B = 1;
+    ``select_variant`` with each compare at S1_SHAPE and ``select_lanes``
+    with each tree at S2_SHAPE, their inputs made on the card from the seed.
+    Then: pk_select's winner equals kernel (b) at B = 1 and the unfused scan,
+    pk_dot's has pk_select's index and exact fraction; both kernels' outputs
+    of the counted run equal their plain versions over the whole DB (the
+    plain versions unpack it in pieces); every select probe
+    equals its plain version at its shape, on a tie-heavy block at tile_n
+    2,048 and 128 (s1) and with an int16 wrap (s2), and f32 keeps the
+    first of the pair that int32 resolves; then the times, p1 and p2 beside
+    (b) at B = 1, s1 and s2 beside (a) on s1's inputs. Returns the seven
+    kernels' entries of the kernels line."""
+    t_phase = time.perf_counter()
+    pat, msk = packed.db_pat.reshape(-1, BITS_BYTES), packed.db_msk.reshape(-1, BITS_BYTES)
+    n = pat.shape[0]
+    qp, qm = (torch.from_numpy(x[:1].copy()).to(dev) for x in (qpat, qmsk))
+    qe, qmk = prep_query(qp, qm)
+    q_enc, q_mask = prepare_query_planes(qp, qm)
+    s1_dot, s1_den = probe_inputs(*S1_SHAPE, seed, dev)
+    s2_dot, s2_den = probe_inputs(*S2_SHAPE, seed + 1, dev, torch.int16)
+
+    # ---- the probes' paths, counted
+    pk_dot.launches = pk_select.launches = 0
+    select_variant.launches = dict.fromkeys(COMPARES, 0)
+    select_lanes.launches = dict.fromkeys(TREES, 0)
+    p1_packed = pk_dot(qe, qmk, pat, msk)
+    p1 = pk_dot_winner(p1_packed)
+    p2 = pk_select(qe, qmk, pat, msk)
+    s1 = {c: torch.stack(select_variant(s1_dot, s1_den, 0, c)) for c in COMPARES}
+    s2 = {t: select_lanes(s2_dot, s2_den, t == "i16") for t in TREES}
+    launches = {"pk_dot": pk_dot.launches, "pk_select": pk_select.launches,
+                **{f"select_variant_{c}": select_variant.launches[c] for c in COMPARES},
+                **{f"select_lanes_{t}": select_lanes.launches[t] for t in TREES}}
+    print(f"launches in the b1 and select probes' run: {json.dumps(launches)}")
+    check(dev.type == "cpu" or all(v > 0 for v in launches.values()),
+          "every b1 and select probe kernel launched on its path")
+
+    # ---- correctness
+    want = match_packed_small_b(q_enc, q_mask, packed.db_pat, packed.db_msk)
+    check(torch.equal(p2, want), f"pk_select N={n}: winner {p2.ravel().tolist()} equals "
+          f"kernel (b) at B=1 {want.ravel().tolist()}")
+    check(torch.equal(p2, _match_scan_packed(q_enc, q_mask, packed.db_pat, packed.db_msk,
+                                             fused=False)), "pk_select: equals the unfused scan")
+    (n1, d1, i1), (n2, d2, i2) = p1.ravel().tolist(), p2.ravel().tolist()
+    check(i1 == i2 and n1 * d2 == n2 * d1 and d1 > 0,
+          f"pk_dot N={n}: winner {p1.ravel().tolist()} has pk_select's index and fraction")
+    print(f"pk_select N={n} B=1: winner {p2.ravel().tolist()} equals kernel (b) and the "
+          f"unfused scan; pk_dot's {p1.ravel().tolist()} the same index and fraction "
+          f"(pairs {'equal' if (n1, d1) == (n2, d2) else 'differ: a rotation tie'})")
+    err = {}
+    err["pk_dot"] = int((p1_packed.long() - pk_dot_reference(qe, qmk, pat, msk).long())
+                        .abs().max())
+    del p1_packed
+    err["pk_select"] = int((p2 - pk_select_reference(qe, qmk, pat, msk)).abs().max())
+    check(err["pk_dot"] == 0 and err["pk_select"] == 0,
+          f"pk_dot, pk_select N={n}: the counted run's outputs equal their plain versions")
+    print(f"pk_dot [32, {n}] and pk_select: the counted run's outputs equal their plain "
+          "versions over the whole DB")
+    t_dot, t_den = (torch.from_numpy(x).to(dev) for x in tie_case(*TIE_SHAPE))
+    for c in COMPARES:
+        err[f"select_variant_{c}"] = int((s1[c] - torch.stack(select_variant_reference(
+            s1_dot, s1_den, 0, c))).abs().max())
+        for tile_n in (2048, 128):
+            got = torch.stack(select_variant(t_dot, t_den, 3, c, tile_n))
+            e = int((got - torch.stack(select_variant_reference(t_dot, t_den, 3, c, tile_n)))
+                    .abs().max())
+            err[f"select_variant_{c}"] = max(err[f"select_variant_{c}"], e)
+            check(got[:, 0, 0].tolist() == ([12799, 12800, 3] if c == "f32"
+                                            else [12798, 12799, 1027]),
+                  f"select_variant {c} tile_n={tile_n}: the f32 disagreement pair")
+            check(got[:, 1, 0].tolist() == ([0, 2, 260] if tile_n == 2048 else [0, 4, 132]),
+                  f"select_variant {c} tile_n={tile_n}: the congruent duplicates")
+        check(err[f"select_variant_{c}"] == 0, f"select_variant {c}: kernel equals its plain "
+              f"version at {list(s1_dot.shape)} and on the tie block")
+    t_dot, t_den = (torch.from_numpy(x).to(dev) for x in tie_case(*TIE_SHAPE, dtype=np.int16))
+    t_dot[5, 7] = -20_000  # den - dot = 32,800: wraps in the int16 tree
+    for t in TREES:
+        i16 = t == "i16"
+        e = max(int((s2[t] - select_lanes_reference(s2_dot, s2_den, i16)).abs().max()),
+                int((select_lanes(t_dot, t_den, i16)
+                     - select_lanes_reference(t_dot, t_den, i16)).abs().max()))
+        err[f"select_lanes_{t}"] = e
+        check(e == 0, f"select_lanes {t}: kernel equals its plain version at "
+              f"{list(s2_dot.shape)}, on the tie block and the int16 wrap")
+    print("kernels select_variant (i32, f32, f32_exact) and select_lanes (i32, i16): equal "
+          "to their plain versions at the probes' shapes, on the tie block and the wrap; "
+          "f32 keeps 12,799/12,800 where i32 takes 12,798/12,799; the trees agree: "
+          f"{torch.equal(s2['i32'], s2['i16'])}")
+
+    # ---- times (CUDA events)
+    b_ms = cuda_ms(lambda: match_packed_small_b(q_enc, q_mask, packed.db_pat, packed.db_msk),
+                   10)
+    w_ms = cuda_ms(lambda: pk_dot_winner(pk_dot(qe, qmk, pat, msk)), 5)
+    rows = {"pk_dot": (lambda: pk_dot(qe, qmk, pat, msk),
+                       lambda: pk_dot_reference(qe, qmk, pat, msk),
+                       bound(2 * BITS_BYTES * n + 2 * 32 * BITS + 4 * 32 * n,
+                             2 * 2 * 32 * BITS * n, INT8_OPS),
+                       "scripts/b1_kernel_probe.py:97", "b1_packed.cu"),
+            "pk_select": (lambda: pk_select(qe, qmk, pat, msk),
+                          lambda: pk_select_reference(qe, qmk, pat, msk),
+                          packed_bound(1, n, 12),
+                          "scripts/b1_kernel_probe.py:144", "packed_match.cu")}
+    s1_bytes, s2_bytes = 8 * s1_dot.numel(), 4 * s2_dot.numel()
+    for c in COMPARES:
+        rows[f"select_variant_{c}"] = (
+            lambda c=c: select_variant(s1_dot, s1_den, 0, c),
+            lambda c=c: select_variant_reference(s1_dot, s1_den, 0, c),
+            bound(s1_bytes + 12 * S1_SHAPE[0],
+                  (NUMERATOR_OPS + COMPARE_OPS[c]) * s1_dot.numel(), ALU_OPS),
+            "scripts/select_variants.py:66", "select_probes.cu")
+    for t in TREES:
+        rows[f"select_lanes_{t}"] = (
+            lambda t=t: select_lanes(s2_dot, s2_den, t == "i16"),
+            lambda t=t: select_lanes_reference(s2_dot, s2_den, t == "i16"),
+            bound(s2_bytes + 4 * LANES_OUT * S2_SHAPE[0],
+                  (NUMERATOR_OPS + COMPARE_OPS["i32"]) * s2_dot.numel(), ALU_OPS),
+            "scripts/select_i16_probe.py:18", "select_probes.cu")
+    a_ms = cuda_ms(lambda: select_chunk(s1_dot, s1_den, 0), 20)
+    entries = []
+    for name, (kernel, plain, (b_lo, b_by), replaces, src) in rows.items():
+        k_ms = cuda_ms(kernel, 10)
+        p_ms = cuda_ms(plain, 1)
+        beside = (f"kernel (b) at B=1 {b_ms:.4f} ms" if name.startswith("pk_")
+                  else f"kernel (a) select_chunk on the same inputs {a_ms:.4f} ms")
+        print(f"time kernel {name}: {k_ms:.4f} ms, plain {p_ms:.3f} ms; bound {b_lo:.4f} ms "
+              f"({b_by}), {b_lo / k_ms:.1%} of it; {beside} [{card}]")
+        entries.append({"name": name, "route": "cuda",
+                        "source": f"mpc_iris_tpu_torch/csrc/{src}", "replaces": replaces,
+                        "launches": launches[name], "max_abs_err": err[name], "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_lo, "bound_by": b_by,
+                        "library_ms": None})
+    print(f"time pk_dot with its epilogue pk_dot_winner N={n}: {w_ms:.4f} ms [{card}]")
+    print(f"b1 and select probe phase: {time.perf_counter() - t_phase:.1f} s")
     return entries
 
 
@@ -1723,9 +1890,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
@@ -1742,7 +1907,8 @@ def main() -> int:
             kernel = next((k for k in ("select_part_kernel", "packed_match_kernel",
                                        "packed_fractions_kernel", "fold_parts_kernel",
                                        "chacha_planes_kernel", "int8_gemm_kernel",
-                                       "keyed_share_dot_kernel")
+                                       "keyed_share_dot_kernel", "pk_dot_kernel",
+                                       "tile_select_kernel", "fold_tiles_kernel")
                                if k in line), line)
             config = re.findall(r"L[ib](\d+)E", line)
             if config:  # the template arguments
@@ -2022,6 +2188,7 @@ def main() -> int:
                     "bound_by": bound_by, "library_ms": None})
 
     kernels += probe_phase(dev, packed, qpat, qmsk, card)
+    kernels += b1_select_probe_phase(dev, packed, qpat, qmsk, args.seed, card)
 
     # the sharded phase, after the single-card engines it does not need
     del dense, eng, requests, audit_requests

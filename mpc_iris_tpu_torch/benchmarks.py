@@ -25,6 +25,7 @@ Run: `python -m mpc_iris_tpu_torch bench-kernels [--json]`.
 from __future__ import annotations
 
 import json as _json
+import subprocess
 import sys
 import time
 
@@ -34,6 +35,39 @@ from mpc_iris_tpu_torch.constants import BITS, N_ROTATIONS
 
 # The reference's criterion size points (element-pairs = DB entries per query-rot).
 REFERENCE_SIZES = (1, 1_000, 31_000, 100_000, 3_100_000)
+
+# The card's peaks (NVIDIA H100 SXM data sheet, dense), for the bounds the
+# probe runners and chip_smoke.py print: memory, int8 tensor operations, and
+# 32-bit ALU instructions on the CUDA cores (the 67 TFLOP/s float32 FMA peak
+# counted per instruction).
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS = 1.979e15
+ALU_OPS = 3.35e13
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, by CUDA events, after
+    one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _timeit(fn, iters=5):

@@ -1,6 +1,7 @@
 // The per-entry rotation minimum over the BIT-PACKED template DB on Hopper's
 // int8 tensor cores, shared by the packed small-batch kernels: match
-// (packed_match.cu) and the audit spectrum (packed_fractions.cu).
+// (packed_match.cu) and the audit spectrum (packed_fractions.cu); its
+// products alone also by the B = 1 pk-dot probe kernel (b1_packed.cu).
 //
 // Replaces the tile loop of the TPU kernels mpc_iris_tpu/ops/packed_match.py::
 // match_packed_small_b / fractions_packed_small_b (_acc_dots, _unpack_planes):
@@ -313,11 +314,12 @@ struct Ring {
     cp_async_arrive(d_full + 8 * ds);
   }
 
-  // Returns in rot[mt][q][h], for the entry at tile_row(mt, h) and query q
-  // of the group, the exact minimum over the 32 rotation rows as
-  // (n, d, row), the same in the 4 threads of a quad; row 31 (all zero)
-  // gives d = 0, and an all-invalid entry (0, 0, 0).
-  __device__ __forceinline__ void run(Frac (&rot)[MT][QG][2]) const {
+  // Runs the pipeline over the tile and leaves the two int32 products in
+  // acc_dot and acc_den: register k = (4q + c) * 4 + 2h + e of M tile mt
+  // holds the entry at tile_row(mt, h) against query row 8c + 2t + e of the
+  // group's query q (t = threadIdx.x & 3).
+  __device__ __forceinline__ void products(int (&acc_dot)[MT][C::kAcc],
+                                           int (&acc_den)[MT][C::kAcc]) const {
     if (threadIdx.x == 0) {
       for (int s = 0; s < kQStages; ++s) {
         mbar_init(q_full + 8 * s, 1);
@@ -336,8 +338,6 @@ struct Ring {
     for (int js = 0; js < kDbStages - 1; ++js) fetch_db(js);
 
     const int t = threadIdx.x & 3;
-    int acc_dot[MT][C::kAcc];
-    int acc_den[MT][C::kAcc];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -418,7 +418,17 @@ struct Ring {
         reg_fence(acc_dot[mt][i]);
         reg_fence(acc_den[mt][i]);
       }
+  }
 
+  // Returns in rot[mt][q][h], for the entry at tile_row(mt, h) and query q
+  // of the group, the exact minimum over the 32 rotation rows as
+  // (n, d, row), the same in the 4 threads of a quad; row 31 (all zero)
+  // gives d = 0, and an all-invalid entry (0, 0, 0).
+  __device__ __forceinline__ void run(Frac (&rot)[MT][QG][2]) const {
+    int acc_dot[MT][C::kAcc];
+    int acc_den[MT][C::kAcc];
+    products(acc_dot, acc_den);
+    const int t = threadIdx.x & 3;
     // accumulator register 4c + 2h + e holds row (g + 8h), column 8c + 2t + e
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)

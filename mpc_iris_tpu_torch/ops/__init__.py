@@ -21,6 +21,13 @@ audit and MPC paths (counterpart of ``mpc_iris_tpu/ops``).
   (csrc/int8_gemm.cu) and ``keyed_share_dots`` (csrc/keyed_share_dot.cu,
   ChaCha20 fused with the share products) and their plain versions; no
   engine calls them (scripts/fused_mm_regen_probe_torch.py measures them)
+- ``b1_packed``, ``select_probes``: the B = 1 packed-dot probe kernels
+  ``pk_dot`` (csrc/b1_packed.cu) and ``pk_select`` (kernel (b) with one
+  query, csrc/packed_match.cu) and the select
+  compare-arithmetic probe kernels ``select_variant`` and ``select_lanes``
+  (csrc/select_probes.cu) and their plain versions; no engine calls them
+  (scripts/b1_kernel_probe_torch.py, select_variants_torch.py and
+  select_i16_probe_torch.py measure them)
 - ``self_test``: the runtime canary of the int8 product, the share dot and
   the engines' kernels
 - ``_build``: compiles csrc/*.cu with nvcc and loads it with ctypes

@@ -54,6 +54,13 @@ _SIGNATURES = {
         [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_uint32,
          ctypes.c_uint32, ctypes.c_int, ctypes.c_int, _P, _P],
         ctypes.c_int),
+    "pk_dot_launch": ([_P, _P, _P, ctypes.c_longlong, _P, _P], ctypes.c_int),
+    "select_variant_launch": (
+        [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
+         _P],
+        ctypes.c_int),
+    "select_lanes_launch": (
+        [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P], ctypes.c_int),
 }
 
 

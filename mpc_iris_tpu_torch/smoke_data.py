@@ -1,16 +1,20 @@
 """Data of the card check (``chip_smoke.py``) and of its helper processes
 (``parallel/party_smoke.py``, ``protocol/party_proc.py``): random packed
 templates made from a seed, so a process rebuilds the same DB from the seed
-alone and no data file crosses between processes."""
+alone and no data file crosses between processes. Also the select probes'
+inputs (:func:`probe_inputs`, :func:`tie_case`), which the probe runners,
+``chip_smoke.py`` and the tests share."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES
 from mpc_iris_tpu_torch.types import Bits
 
 N_PLANTED = 8
+_ROWS = 32  # a select probe query's rows: 31 rotations and a dummy
 
 
 def make_db(rng: np.random.Generator, n: int):
@@ -52,3 +56,42 @@ def query_rows(n: int, b: int) -> np.ndarray:
     """The DB rows whose copies are the queries: spread over the DB, so
     every shard holds some."""
     return np.linspace(0, n - 1, b).astype(np.int64)
+
+
+def probe_inputs(b: int, n: int, seed: int, device, dtype=torch.int32):
+    """The select probes' inputs, made on ``device`` from ``seed``: den and num
+    uniform in [0, 12,800], num <= den, dot = den - 2 num (so that (den - dot)
+    >> 1 gives num back), as ``dtype`` [b*32, n]."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    den = torch.randint(0, 12_801, (b * _ROWS, n), generator=g, device=device,
+                        dtype=torch.int32)
+    num = torch.randint(0, 12_801, (b * _ROWS, n), generator=g, device=device,
+                        dtype=torch.int32)
+    num = torch.minimum(num, den)
+    return (den - 2 * num).to(dtype), den.to(dtype)
+
+
+def tie_case(b: int = 8, n: int = 4096, seed: int = 3, dtype=np.int32):
+    """numpy dot, den [b*32, n] of ``dtype`` full of exact ties (b >= 8, n a
+    multiple of 2,048).
+
+    - Query 0, the f32 disagreement: every place 12,800/12,800 but
+      12,799/12,800 at column 0 and 12,798/12,799 at column 1,024, which meet
+      at the first level of the column tree: ``i32`` returns (12,798, 12,799,
+      1,024), ``f32`` (12,799, 12,800, 0).
+    - Query 1, congruent duplicates: every place 12,800/12,800 but 0/4 at
+      column 129 and 0/2 at column 257: a tile of 2,048 keeps 257 (its tree
+      pairs them at the 128 level, 257 first), a tile of 128 keeps 129 (the
+      fold in tile order).
+    - The other queries: denominators 1 .. 4 and a quarter of the numerators
+      0, so that many columns and rows reach 0 as different pairs.
+    """
+    rng = np.random.default_rng(seed)
+    den = rng.integers(1, 5, (b * _ROWS, n))
+    num = np.where(rng.random(den.shape) < 0.25, 0, rng.integers(0, 5, den.shape))
+    num = np.minimum(num, den)
+    den[:2 * _ROWS] = num[:2 * _ROWS] = 12_800
+    num[0, 0], den[0, 0] = 12_799, 12_800
+    num[0, 1024], den[0, 1024] = 12_798, 12_799
+    num[_ROWS, [129, 257]], den[_ROWS, [129, 257]] = 0, (4, 2)
+    return (den - 2 * num).astype(dtype), den.astype(dtype)

@@ -13,14 +13,17 @@ import torch
 from mpc_iris_tpu import native
 from mpc_iris_tpu_torch.models import KeyedShareEngine, MasksEngine, PlaintextEngine, ShareEngine
 from mpc_iris_tpu_torch.models.engines import _pad_chunks, prepare_query_planes
+from mpc_iris_tpu_torch.ops import b1_packed as tb1
 from mpc_iris_tpu_torch.ops import chacha as tcha
 from mpc_iris_tpu_torch.ops import dot as tdot
 from mpc_iris_tpu_torch.ops import gemm as tgemm
 from mpc_iris_tpu_torch.ops import keyed_dot as tkd
 from mpc_iris_tpu_torch.ops import packed_match as tpm
 from mpc_iris_tpu_torch.ops import select as tsel
+from mpc_iris_tpu_torch.ops import select_probes as tsp
 from mpc_iris_tpu_torch.ops.encode import share_split_device
 from mpc_iris_tpu_torch.protocol import coordinator as tcoord
+from mpc_iris_tpu_torch.smoke_data import probe_inputs, tie_case
 
 pytestmark = pytest.mark.gpu
 
@@ -413,3 +416,63 @@ def test_cli_match_packed_launches_kernel_b(cuda, tmp_path, capsys):
     assert len(lines) == 8 and all(l.endswith("at distance 0.0") for l in lines)
     assert main([*argv, "--device", "cpu"]) == 0
     assert [l for l in capsys.readouterr().out.splitlines() if l.startswith("query ")] == lines
+
+
+# An entry count no 256-entry block divides, a few blocks, and a slab of the
+# probe's size; the query is entry 17, duplicated at n - 3 (a later index at
+# the same distance 0).
+@pytest.mark.parametrize("n", [1000, 4096, 65_536])
+def test_b1_packed_kernels(cuda, n):
+    rng = np.random.default_rng(n)
+    pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    pat[n - 3], msk[n - 3] = pat[17], msk[17]
+    qp, qm = (torch.from_numpy(x[17:18].copy()).to(cuda) for x in (pat, msk))
+    qe, qmk = tb1.prep_query(qp, qm)
+    pat, msk = torch.from_numpy(pat).to(cuda), torch.from_numpy(msk).to(cuda)
+    before = tb1.pk_dot.launches, tb1.pk_select.launches
+    packed = tb1.pk_dot(qe, qmk, pat, msk)
+    win = tb1.pk_select(qe, qmk, pat, msk)
+    torch.cuda.synchronize()
+    assert (tb1.pk_dot.launches, tb1.pk_select.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(packed, tb1.pk_dot_reference(qe, qmk, pat, msk))
+    assert torch.equal(win, tb1.pk_select_reference(qe, qmk, pat, msk))
+    q_enc, q_mask = prepare_query_planes(qp, qm)
+    assert torch.equal(win, tpm.match_packed_small_b(q_enc, q_mask, pat.view(1, n, 1600),
+                                                     msk.view(1, n, 1600)))
+    assert win[:, 0].tolist()[::2] == [0, 17] and torch.equal(tb1.pk_dot_winner(packed), win)
+
+
+# The probes' tile rules (8 queries a tile, 2,048 columns), random inputs in
+# their range, the tie case (at tile_n 2,048 and 128; its f32 disagreement
+# pair and congruent duplicates) and, for the int16 tree, a wrap.
+@pytest.mark.parametrize("compare", tsp.COMPARES)
+def test_select_variant_kernel(cuda, compare):
+    rnd = probe_inputs(16, 8192, 7, cuda)
+    ties = tuple(torch.from_numpy(x).to(cuda) for x in tie_case(16, 8192))
+    for (dot, den), off, tile_n in ((rnd, 0, 2048), (rnd, 1 << 20, 256), (ties, 3, 2048),
+                                    (ties, 3, 128)):
+        before = tsp.select_variant.launches[compare]
+        got = torch.stack(tsp.select_variant(dot, den, off, compare, tile_n))
+        torch.cuda.synchronize()
+        assert tsp.select_variant.launches[compare] == before + 1
+        assert torch.equal(got, torch.stack(tsp.select_variant_reference(dot, den, off, compare,
+                                                                         tile_n)))
+    assert got[:, 0, 0].tolist() == ([12_799, 12_800, 3] if compare == "f32"
+                                     else [12_798, 12_799, 1027])
+    assert got[:, 1, 0].tolist() == [0, 4, 132]  # tile 128: the fold keeps 129 (+ 3)
+
+
+@pytest.mark.parametrize("i16_tree", [False, True])
+def test_select_lanes_kernel(cuda, i16_tree):
+    rnd = probe_inputs(16, 8192, 8, cuda, torch.int16)
+    ties = [torch.from_numpy(x).to(cuda) for x in tie_case(16, 8192, dtype=np.int16)]
+    ties[0][5, 7] = -20_000  # den - dot = 32,800: wraps in the int16 tree
+    for dot, den in (rnd, ties):
+        before = tsp.select_lanes.launches["i16" if i16_tree else "i32"]
+        got = tsp.select_lanes(dot, den, i16_tree)
+        torch.cuda.synchronize()
+        assert tsp.select_lanes.launches["i16" if i16_tree else "i32"] == before + 1
+        assert torch.equal(got, tsp.select_lanes_reference(dot, den, i16_tree))
+    assert got[0, [0, 256]].tolist() == [12_798, 1024]
+    assert (int(got[0, 7]) < 0) == i16_tree
