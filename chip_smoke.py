@@ -50,6 +50,14 @@ NVIDIA GPU, at full size, and check them.
   (csrc/select_probes.cu), each bit-equal to its plain version there, on a
   tie-heavy block (tile_n 2,048 and 128) and an int16 wrap, f32 keeping the
   pair that int32 resolves; the times beside (b) at B = 1 and (a);
+- drives the streaming, morph and bisect probe kernels
+  (``stream_probe_phase``; scripts/dma_probe_torch.py, morph_probe_torch.py,
+  select_bisect_torch.py; csrc/stream_probes.cu): every variant of the
+  probes' mains once at their shapes, int32 [4,096, 32,768] x2 in each
+  probe's range: ``dma_variant`` x9, ``morph_stage`` stages 0-5, ``morph2``
+  x5, ``morph3`` x2, ``bisect``'s five modes at tiles (8, 2,048) and (4,
+  8,192); each output bit-equal to its plain version on the card, each time
+  beside its bound and beside (a) and s1's i32 on the same inputs;
 - serves one 3-party MPC query at 262,144 entries (``bench.py --mode share``'s
   default) on the dense DB's templates: parties 0 and 1 keyed (half their
   chunks resident, the rest regenerated per query), party 2 a
@@ -132,7 +140,7 @@ NVIDIA GPU, at full size, and check them.
   imported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-card, the one before that the kernels as JSON (fourteen kernels, each with
+card, the one before that the kernels as JSON (nineteen kernels, each with
 its bound).
 Exits nonzero, printing no result, without a CUDA card or when any build,
 launch or check fails.
@@ -180,7 +188,7 @@ from mpc_iris_tpu_torch.models.engines import (
     _share_dots_chunk,
     find_under_from_fractions,
 )
-from mpc_iris_tpu_torch.ops import _build
+from mpc_iris_tpu_torch.ops import _build, stream_probes
 from mpc_iris_tpu_torch.ops.b1_packed import (
     pk_dot,
     pk_dot_reference,
@@ -258,12 +266,15 @@ from mpc_iris_tpu_torch.protocol.coordinator import (
 from mpc_iris_tpu_torch.protocol.party_proc import start_parties, stop_parties
 from mpc_iris_tpu_torch.protocol.wire import batched_query_bytes
 from mpc_iris_tpu_torch.smoke_data import (
+    BISECT_RANGES,
     N_PLANTED,
+    STREAM_RANGES,
     db_rng,
     make_data,
     make_db,
     probe_inputs,
     query_rows,
+    stream_inputs,
     tie_case,
 )
 
@@ -273,6 +284,18 @@ S1_SHAPE = (128, 32_768)
 S2_SHAPE = (256, 32_768)
 LANES_OUT = 3 * 128  # select_lanes' int32 winners a query
 TIE_SHAPE = (64, 8_192)
+# the stream probes' inputs: dma_probe.py's and morph_probe.py's [B, N], and
+# select_bisect.py's b x n (1.07 GB each pair); the variant whose time each
+# function's entry of the kernels line carries; the TPU kernel each replaces
+STREAM_SHAPE = (4_096, 32_768)
+BISECT_SHAPE = (128, 32_768)
+STREAM_ENTRY = {
+    "dma_variant": ("2in plain", "scripts/dma_probe.py:27"),
+    "morph_stage": ("stage 5 + column tree (full)", "scripts/morph_probe.py:28"),
+    "morph2": ("1out(384) +3scr +compute", "scripts/morph_probe.py:170"),
+    "morph3": ("replica, with lane tree", "scripts/morph_probe.py:305"),
+    "bisect": ("full (8, 2048)", "scripts/select_bisect.py:24"),
+}
 # int32 operations a compare of the select probes (products, compares,
 # validity, selects), and the subtract and shift of an element's numerator
 COMPARE_OPS = {"i32": 10, "f32": 14, "f32_exact": 28}
@@ -619,7 +642,8 @@ def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
     k_ms, l_ms, p_ms, b_ms, b_by = rows["scan B=128"]
     entries.append({"name": "int8_gemm", "route": "cuda",
                     "source": "mpc_iris_tpu_torch/csrc/int8_gemm.cu",
-                    "replaces": "scripts/mm_probe.py:49",
+                    "replaces": ("scripts/mm_probe.py:49, scripts/mm_ktile_probe.py:34, "
+                                 "scripts/mm_ktile_probe.py:69"),
                     "launches": launches["int8_gemm"], "max_abs_err": gemm_err,
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": l_ms})
@@ -643,8 +667,8 @@ def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
     for v in VARIANTS:
         entries.append({"name": f"keyed_share_dots_{v}", "route": "cuda",
                         "source": "mpc_iris_tpu_torch/csrc/keyed_share_dot.cu",
-                        "replaces": "scripts/fused_regen_probe.py:"
-                                    + ("113" if v == "serial" else "131"),
+                        "replaces": ("scripts/fused_regen_probe.py:113" if v == "serial"
+                                     else "scripts/fused_regen_probe.py:131"),
                         "launches": launches[f"keyed_share_dots_{v}"],
                         "max_abs_err": fused_err[v], "ms": fused[v, 8], "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
@@ -789,6 +813,88 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
                         "library_ms": None})
     print(f"time pk_dot with its epilogue pk_dot_winner N={n}: {w_ms:.4f} ms [{card}]")
     print(f"b1 and select probe phase: {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def stream_probe_phase(dev: torch.device, seed: int, card: str) -> list:
+    """The streaming, morph and bisect probes (scripts/dma_probe_torch.py,
+    morph_probe_torch.py, select_bisect_torch.py). The counted run: every
+    variant of the probes' mains once, ``dma_variant`` x9, ``morph_stage`` x6
+    (morph_probe.py's main), ``morph2`` x5 (main2), ``morph3`` x2 (main3) on
+    STREAM_SHAPE int32 inputs in dma_probe.py's ranges, ``bisect`` x10 (five
+    modes at tiles (8, 2,048) and (4, 8,192)) on BISECT_SHAPE in
+    select_bisect.py's, made on the card from the seed. Then every output
+    against its plain version on the card, bit for bit; then each variant's
+    time and its bound (the inputs read once: 0.3205 ms, 0.160 for one
+    input), beside kernel (a) and s1's ``select_variant("i32")`` on the same
+    inputs. Returns the five functions' entries of the kernels line, each
+    with the time of its STREAM_ENTRY variant and the largest error of all."""
+    t_phase = time.perf_counter()
+    m_dot, m_den = stream_inputs(*STREAM_SHAPE, seed, dev, STREAM_RANGES)
+    b_dot, b_den = stream_inputs(BISECT_SHAPE[0] * 32, BISECT_SHAPE[1], seed + 1, dev,
+                                 BISECT_RANGES)
+    runs = {p: stream_probes.main_variants(p, m_dot, m_den) for p in stream_probes.PROBES[:4]}
+    runs["bisect"] = stream_probes.main_variants("bisect", b_dot, b_den)
+    fns = {p: getattr(stream_probes, p) for p in stream_probes.PROBES}
+
+    # ---- the probes' mains, counted
+    for fn in fns.values():
+        fn.launches = 0
+    outs = {p: [kernel() for _, kernel, _ in variants] for p, variants in runs.items()}
+    launches = {p: fn.launches for p, fn in fns.items()}
+    print(f"launches in the stream probes' run: {json.dumps(launches)}")
+    check(dev.type == "cpu" or all(launches[p] == len(runs[p]) for p in runs),
+          "every stream probe variant launched its kernel once")
+
+    # ---- correctness
+    err = {}
+    for p, variants in runs.items():
+        err[p] = 0
+        for (label, _, plain), got in zip(variants, outs[p]):
+            want = plain()
+            got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+            check(len(got) == len(want) and all(g.shape == w.shape for g, w in zip(got, want)),
+                  f"{p} {label}: shapes of its plain version")
+            e = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+            check(e == 0, f"{p} {label}: kernel equals its plain version")
+            err[p] = max(err[p], e)
+    print("kernels dma_variant (9 variants), morph_stage (stages 0-5), morph2 (5), morph3 (2), "
+          "bisect (5 modes x 2 tiles): every output bit-equal to its plain version at "
+          f"{list(STREAM_SHAPE)} and [{BISECT_SHAPE[0] * 32}, {BISECT_SHAPE[1]}]")
+
+    # ---- times (CUDA events), beside (a) and s1 on the same inputs
+    beside = {}
+    for name, (dot, den) in (("dma_probe/morph_probe", (m_dot, m_den)),
+                             ("select_bisect", (b_dot, b_den))):
+        a_ms = cuda_ms(lambda: select_chunk(dot, den, 0), 20)
+        s1_ms = cuda_ms(lambda: select_variant(dot, den, 0, "i32"), 20)
+        beside[name] = f"(a) {a_ms:.4f} ms, s1 i32 {s1_ms:.4f} ms on the same inputs"
+        print(f"time on the {name} inputs: kernel (a) select_chunk {a_ms:.4f} ms, "
+              f"select_variant i32 {s1_ms:.4f} ms [{card}]")
+    compute = {"morph_stage": ("stage 3", "stage 4", "stage 5"), "morph2": ("compute", "=select"),
+               "morph3": ("replica",), "bisect": ("full",)}
+    entries = []
+    for p, variants in runs.items():
+        dot = b_dot if p == "bisect" else m_dot
+        where = "select_bisect" if p == "bisect" else "dma_probe/morph_probe"
+        for label, kernel, plain in variants:
+            n_in = 1 if label.startswith("1in") else 2
+            trees = any(k in label for k in compute.get(p, ()))
+            b_lo, b_by = bound(n_in * 4 * dot.numel(),
+                               (NUMERATOR_OPS + COMPARE_OPS["i32"]) * dot.numel() if trees
+                               else 0, ALU_OPS)
+            k_ms = cuda_ms(kernel, 10)
+            p_ms = cuda_ms(plain, 1)
+            print(f"time kernel {p} {label}: {k_ms:.4f} ms, plain {p_ms:.3f} ms; bound "
+                  f"{b_lo:.4f} ms ({b_by}), {b_lo / k_ms:.1%} of it; {beside[where]} [{card}]")
+            if label == STREAM_ENTRY[p][0]:
+                entries.append({"name": p, "route": "cuda",
+                                "source": "mpc_iris_tpu_torch/csrc/stream_probes.cu",
+                                "replaces": STREAM_ENTRY[p][1], "launches": launches[p],
+                                "max_abs_err": err[p], "ms": k_ms, "plain_ms": p_ms,
+                                "bound_ms": b_lo, "bound_by": b_by, "library_ms": None})
+    check(len(entries) == len(runs), "every stream probe function has its entry")
+    print(f"stream probe phase: {time.perf_counter() - t_phase:.1f} s")
     return entries
 
 
@@ -1908,7 +2014,8 @@ def main() -> int:
                                        "packed_fractions_kernel", "fold_parts_kernel",
                                        "chacha_planes_kernel", "int8_gemm_kernel",
                                        "keyed_share_dot_kernel", "pk_dot_kernel",
-                                       "tile_select_kernel", "fold_tiles_kernel")
+                                       "tile_select_kernel", "fold_tiles_kernel",
+                                       "stream_kernel")
                                if k in line), line)
             config = re.findall(r"L[ib](\d+)E", line)
             if config:  # the template arguments
@@ -2189,6 +2296,7 @@ def main() -> int:
 
     kernels += probe_phase(dev, packed, qpat, qmsk, card)
     kernels += b1_select_probe_phase(dev, packed, qpat, qmsk, args.seed, card)
+    kernels += stream_probe_phase(dev, args.seed, card)
 
     # the sharded phase, after the single-card engines it does not need
     del dense, eng, requests, audit_requests

@@ -70,6 +70,30 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def check_variants(variants, bound_bytes, card: str | None, iters: int = 20) -> bool:
+    """A probe runner's loop: each (label, kernel call, plain call) run once,
+    its output held against the plain version's bit for bit; with a ``card``
+    (the name and limit to print; None on the CPU) also its CUDA-event time,
+    and its share of the bound, ``bound_bytes(label)`` at the memory rate.
+    Prints a line a variant; returns whether every output was equal."""
+    import torch
+
+    ok = True
+    for label, kernel, plain in variants:
+        got, want = kernel(), plain()
+        got, want = ((x,) if torch.is_tensor(x) else tuple(x) for x in (got, want))
+        exact = len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+        ok &= exact
+        line = f"{label}: {'kernel' if card else 'wrapper'} == plain version: {exact}"
+        if card:
+            ms = cuda_ms(kernel, iters)
+            b_ms = bound_bytes(label) / HBM_BYTES_PER_S * 1e3
+            line += (f"; {ms:.4f} ms, {bound_bytes(label) / ms / 1e6:.0f} GB/s, bound "
+                     f"{b_ms:.4f} ms (bytes), {b_ms / ms:.1%} of it [{card}]")
+        print(line, flush=True)
+    return ok
+
+
 def _timeit(fn, iters=5):
     return _timeit_stats(fn, iters=iters)["min"]
 

@@ -61,6 +61,17 @@ _SIGNATURES = {
         ctypes.c_int),
     "select_lanes_launch": (
         [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P, _P], ctypes.c_int),
+    "stream_probe_launch": (
+        [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, _P, _P],
+        ctypes.c_int),
+    "probe_trees_launch": (
+        [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+        ctypes.c_int),
+    "probe_fold_launch": (
+        [ctypes.c_int, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_longlong, ctypes.c_longlong, _P, _P],
+        ctypes.c_int),
 }
 
 

@@ -127,13 +127,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_party(procs: int = 2, backend: str = "gloo", device: str = "cpu", n: int = 64,
+def run_party(procs: int = 2, backend: str = "gloo", *, device: str, n: int = 64,
               n_share: int = 64, chunk: int = 8, batch: int = 2, seed: int = 7,
               shards_per_rank: int = 2, mesh_batch: int = 1, threshold: float = 0.375,
               timeout: float = 120.0) -> dict:
     """Start ``procs`` rank processes on localhost and return rank 0's JSON.
-    Raises with the ranks' errors if any rank fails; kills every rank on
-    the timeout."""
+    ``device`` (``"cuda"``, ``"cuda:0"`` or ``"cpu"``) is the ranks' device;
+    it has no default, so no caller lands on the CPU unasked. Raises with
+    the ranks' errors if any rank fails; kills every rank on the timeout."""
     settings = dict(procs=procs, port=_free_port(), backend=backend, device=device, n=n,
                     n_share=n_share, chunk=chunk, batch=batch, seed=seed,
                     shards_per_rank=shards_per_rank, mesh_batch=mesh_batch,

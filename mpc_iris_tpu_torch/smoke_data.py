@@ -2,8 +2,9 @@
 (``parallel/party_smoke.py``, ``protocol/party_proc.py``): random packed
 templates made from a seed, so a process rebuilds the same DB from the seed
 alone and no data file crosses between processes. Also the select probes'
-inputs (:func:`probe_inputs`, :func:`tie_case`), which the probe runners,
-``chip_smoke.py`` and the tests share."""
+inputs (:func:`probe_inputs`, :func:`tie_case`) and the stream probes'
+(:func:`stream_inputs`), which the probe runners, ``chip_smoke.py`` and the
+tests share."""
 
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ from mpc_iris_tpu_torch.types import Bits
 
 N_PLANTED = 8
 _ROWS = 32  # a select probe query's rows: 31 rotations and a dummy
+# the stream probes' ranges [lo, hi) of dot and den: dma_probe.py and
+# morph_probe.py's, then select_bisect.py's
+STREAM_RANGES = ((-100, 100), (0, 100))
+BISECT_RANGES = ((-12_800, 12_801), (0, 12_801))
 
 
 def make_db(rng: np.random.Generator, n: int):
@@ -69,6 +74,14 @@ def probe_inputs(b: int, n: int, seed: int, device, dtype=torch.int32):
                         dtype=torch.int32)
     num = torch.minimum(num, den)
     return (den - 2 * num).to(dtype), den.to(dtype)
+
+
+def stream_inputs(rows: int, n: int, seed: int, device, ranges=STREAM_RANGES):
+    """The stream probes' int32 dot, den [rows, n], uniform in ``ranges``
+    (dot's, den's), made on ``device`` from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randint(lo, hi, (rows, n), generator=g, device=device, dtype=torch.int32)
+                 for lo, hi in ranges)
 
 
 def tie_case(b: int = 8, n: int = 4096, seed: int = 3, dtype=np.int32):

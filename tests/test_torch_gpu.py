@@ -21,9 +21,10 @@ from mpc_iris_tpu_torch.ops import keyed_dot as tkd
 from mpc_iris_tpu_torch.ops import packed_match as tpm
 from mpc_iris_tpu_torch.ops import select as tsel
 from mpc_iris_tpu_torch.ops import select_probes as tsp
+from mpc_iris_tpu_torch.ops import stream_probes as tstream
 from mpc_iris_tpu_torch.ops.encode import share_split_device
 from mpc_iris_tpu_torch.protocol import coordinator as tcoord
-from mpc_iris_tpu_torch.smoke_data import probe_inputs, tie_case
+from mpc_iris_tpu_torch.smoke_data import BISECT_RANGES, probe_inputs, stream_inputs, tie_case
 
 pytestmark = pytest.mark.gpu
 
@@ -476,3 +477,29 @@ def test_select_lanes_kernel(cuda, i16_tree):
         assert torch.equal(got, tsp.select_lanes_reference(dot, den, i16_tree))
     assert got[0, [0, 256]].tolist() == [12_798, 1024]
     assert (int(got[0, 7]) < 0) == i16_tree
+
+
+# The stream probes (csrc/stream_probes.cu): every variant of the probes'
+# mains, on random inputs in each probe's range and on the tie case with
+# queries 2 and 3 given zero denominators over the first column tile (stage
+# 3's later-tile path), each equal to its plain version on the card.
+@pytest.mark.parametrize("probe", tstream.PROBES)
+def test_stream_probe_kernels(cuda, probe):
+    fn = getattr(tstream, probe)
+    if probe == "bisect":
+        rnd = stream_inputs(16 * 32, 16_384, 9, cuda, BISECT_RANGES)
+        dot, den = tie_case(16, 16_384)
+    else:
+        rnd = stream_inputs(1024, 8192, 9, cuda)
+        dot, den = tie_case(32, 8192)
+    dot[64:128, :2048], den[64:128, :2048] = 7, 0
+    ties = tuple(torch.from_numpy(x).to(cuda) for x in (dot, den))
+    for d, e in (rnd, ties):
+        variants = tstream.main_variants(probe, d, e, 3)
+        before = fn.launches
+        for label, kernel, plain in variants:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), label
+        assert fn.launches == before + len(variants)

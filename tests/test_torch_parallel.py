@@ -479,6 +479,13 @@ def test_no_card_raises():
 # ------------------------------------------------------------------ multi-process
 
 
+def test_run_party_needs_a_device():
+    """run_party has no default device: a caller that names none is refused
+    before any rank process starts, rather than put on the CPU."""
+    with pytest.raises(TypeError, match="device"):
+        run_party(2)
+
+
 def test_two_rank_gloo_party_equals_single_process():
     """Two processes of one party, 2 CPU shards each, every row outside a
     rank's local spans poisoned: winners, the B = 1 spectrum, the share dots

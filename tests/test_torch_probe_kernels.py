@@ -273,8 +273,10 @@ def test_chip_smoke_probe_phase_on_cpu(monkeypatch):
         assert set(e) == keys and e["max_abs_err"] == 0 and e["bound_by"] in (
             "bytes", "operations")
         assert os.path.exists(os.path.join(REPO, e["source"]))
-        path, line = e["replaces"].split(":")
-        with open(os.path.join(REPO, path)) as f:
-            assert "pallas_call" in f.read()
-        assert int(line) > 0
+        for where in e["replaces"].split(", "):  # int8_gemm replaces g1-g3
+            path, line = where.split(":")
+            with open(os.path.join(REPO, path)) as f:
+                assert "pallas_call" in f.read()
+            assert int(line) > 0
+    assert entries[0]["replaces"].count(", ") == 2
     assert entries[0]["library_ms"] is not None and entries[1]["library_ms"] is None
