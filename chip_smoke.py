@@ -556,14 +556,16 @@ def keyed_phase(dev: torch.device, qpat, qmsk, n: int, card: str) -> int:
 def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
     """The fused-regen probe kernels (scripts/fused_mm_regen_probe_torch.py's
     families): ``int8_gemm`` at the products of the scan (B = 128, one
-    chunk) and of the keyed pass (B = 8), and both ``keyed_share_dots``
-    variants on a 16,384-row chunk at B = 1 and 8 and at the three u64
-    carry positions, each bit-equal to its plain version; then the keyed
-    party's whole 1,048,576-entry pass through each fused variant and through
+    chunk) and of the keyed pass (B = 1 and 8), bit-equal to its plain
+    version and to ``torch._int_mm``, and both ``keyed_share_dots`` variants
+    on a 16,384-row chunk at B = 1 and 8 and at the three u64 carry
+    positions, each bit-equal to its plain version; then the keyed party's
+    whole 1,048,576-entry pass through each fused variant and through
     ``int8_gemm`` (the counted run), its checksum equal to
-    ``KeyedShareEngine.fold_pass_fn``'s; then the times, beside
-    ``torch._int_mm`` and the unfused chunk. Returns the three kernels'
-    entries of the kernels line."""
+    ``KeyedShareEngine.fold_pass_fn``'s; then the times, ``int8_gemm``
+    beside ``torch._int_mm`` at the three shapes and the keyed kernels
+    beside kernel (d) alone and the unfused chunk. Returns the three
+    kernels' entries of the kernels line."""
     t_phase = time.perf_counter()
     kw = key_tensor(SHARE_KEY, dev)
     chunk = packed.chunk
@@ -572,7 +574,7 @@ def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
     lo, _ = share_planes_kernel(kw, 0, 0, chunk)
     q_enc = planes(qpat[:128], qmsk[:128], dev)[0]
     enc0, _ = _unpack_encode_chunk(packed.db_pat[0], packed.db_msk[0])
-    products = {"keyed B=8": (q_nat[8], lo),
+    products = {"keyed B=1": (q_nat[1], lo), "keyed B=8": (q_nat[8], lo),
                 "scan B=128": (_fused_rows(q_enc), enc0.contiguous())}
     gemm_err = 0
     for what, (a, b) in products.items():
@@ -593,7 +595,7 @@ def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
             check(err == 0, f"keyed_share_dots[{v}] sid={sid:#x} row0={row0:#x} n={n} "
                   f"B={bb}: kernel equals plain version")
             fused_err[v] = max(fused_err[v], err)
-    print("kernels int8_gemm (the scan's B = 128 products, the keyed B = 8 products) and "
+    print("kernels int8_gemm (the scan's B = 128 products, the keyed B = 1 and 8 products) and "
           "keyed_share_dots (serial, pipelined; a chunk at B = 1 and 8, the three carry "
           "positions at stream id 0xFFFFFFFE): equal to their plain versions")
 
@@ -648,6 +650,9 @@ def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                     "library_ms": l_ms})
     fused = {}
+    d_ms = cuda_ms(lambda: share_planes_kernel(kw, 0, 0, chunk), 20)
+    print(f"time kernel (d) share_planes_kernel alone, one {chunk}-row chunk: {d_ms:.4f} ms "
+          f"[{card}]")
     for bb in (1, 8):
         q = q_nat[bb]
         u_ms = cuda_ms(lambda: _share_dots_chunk(q.reshape(bb, 31, BITS),
@@ -660,8 +665,9 @@ def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
         for v in VARIANTS:
             fused[v, bb] = cuda_ms(lambda: keyed_share_dots(q, kw, 0, 0, chunk, variant=v), 20)
             print(f"time kernel keyed_share_dots[{v}] one {chunk}-row chunk B={bb}: "
-                  f"{fused[v, bb]:.4f} ms; unfused chunk (kernel (d), then the share products "
-                  f"and reply block) {u_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}), "
+                  f"{fused[v, bb]:.4f} ms; kernel (d) alone {d_ms:.4f} ms; unfused chunk "
+                  f"(kernel (d), then the share products and reply block) {u_ms:.4f} ms; "
+                  f"bound {b_ms:.4f} ms ({b_by}), "
                   f"{b_ms / fused[v, bb]:.1%} of it [{card}]")
     p_ms = cuda_ms(lambda: keyed_share_dots_reference(q_nat[8], kw, 0, 0, chunk), 2)
     for v in VARIANTS:

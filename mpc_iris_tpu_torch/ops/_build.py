@@ -48,11 +48,15 @@ _SIGNATURES = {
         [_P, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _P, _P, _P],
         ctypes.c_int),
     "int8_gemm_launch": (
-        [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
+        [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
         ctypes.c_int),
-    "keyed_share_dots_launch": (
-        [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_uint32,
-         ctypes.c_uint32, ctypes.c_int, ctypes.c_int, _P, _P],
+    "keyed_share_dots_serial_launch": (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_uint32, ctypes.c_uint32,
+         ctypes.c_int, ctypes.c_int, _P, _P],
+        ctypes.c_int),
+    "keyed_share_dots_pipe_launch": (
+        [ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_uint32, ctypes.c_uint32,
+         ctypes.c_int, ctypes.c_int, _P, _P],
         ctypes.c_int),
     "pk_dot_launch": ([_P, _P, _P, ctypes.c_longlong, _P, _P], ctypes.c_int),
     "select_variant_launch": (

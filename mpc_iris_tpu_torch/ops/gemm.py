@@ -8,22 +8,25 @@ tensors. The TPU probes ran int8 and int4 operands; Hopper's ``wgmma`` has
 no int4, so int4 values are int8 here (as ``dot_bits_batch_i4`` ->
 ``dot_bits_batch`` in the port). ``torch._int_mm`` computes the same function
 and is the library yardstick beside the kernel; neither function here calls
-it.
+it. :func:`gemm_plan` picks the kernel's tile and persistent grid.
 
-:func:`wgmma_slabs` lays out the shared-memory (N) operand of the int8
-``wgmma`` kernels, once per call: this kernel's and the fused keyed kernel's
-(``ops/keyed_dot.py``).
+:func:`wgmma_slabs` lays out the shared-memory (N) operand of the fused keyed
+kernel (``ops/keyed_dot.py``), once per call.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
 from mpc_iris_tpu_torch.ops._build import check_launch, library
 
-K_ALIGN = 128             # the kernel's stage: 4 K-steps of 32 bytes
-TILE_ROWS = (32, 64, 128)  # rows of the first operand per block (the wgmma N)
-_REFERENCE_ELEMS = 2**27   # float64 elements of the second operand per piece
+K_ALIGN = 128                    # the kernel's stage: 128 bytes of K (one swizzle row)
+QUERY_TILES = (32, 64, 128, 256)  # query rows per tile (the wgmma N)
+DB_TILE = 128                    # DB rows per tile: two consumer warpgroups x 64
+H100_SMS = 132
+_REFERENCE_ELEMS = 2**27         # float64 elements of the second operand per piece
 
 
 def int8_gemm_reference(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
@@ -41,10 +44,35 @@ def int8_gemm_reference(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def tile_rows(m: int) -> int:
-    """Rows of the first operand a block of :func:`int8_gemm` takes: the
-    smallest tile that holds ``m`` rows, else the largest."""
-    return next((t for t in TILE_ROWS if m <= t), TILE_ROWS[-1])
+@dataclass(frozen=True)
+class GemmPlan:
+    """How :func:`int8_gemm` covers an [M, K] . [N, K]^T product: tiles of
+    ``query_rows`` query rows x :data:`DB_TILE` DB rows, query tile fastest,
+    walked by ``grid`` persistent blocks (one an SM)."""
+
+    query_rows: int
+    query_tiles: int
+    db_tiles: int
+    grid: int
+
+    @property
+    def tiles(self) -> int:
+        return self.query_tiles * self.db_tiles
+
+    @property
+    def sweeps(self) -> int:
+        """Tiles the busiest block takes."""
+        return -(-self.tiles // self.grid)
+
+
+def gemm_plan(m: int, n: int, sms: int = H100_SMS) -> GemmPlan:
+    """The kernel's plan for M query rows and N DB rows on ``sms`` SMs: the
+    smallest query tile that holds M (so M <= 256 is one tile and every
+    block reads DB rows no other block reads), else 256; a persistent grid
+    of at most one block an SM."""
+    rows = next((t for t in QUERY_TILES if m <= t), QUERY_TILES[-1])
+    q_tiles, db_tiles = -(-m // rows), -(-n // DB_TILE)
+    return GemmPlan(rows, q_tiles, db_tiles, min(q_tiles * db_tiles, sms))
 
 
 def wgmma_slabs(q: torch.Tensor, rows: int) -> torch.Tensor:
@@ -82,14 +110,18 @@ def int8_gemm(q: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
                          f"(K must be a positive multiple of {K_ALIGN})")
     if not db.is_contiguous() or db.data_ptr() % 16:
         raise ValueError("int8_gemm: db must be contiguous and 16-byte aligned")
-    rows = tile_rows(m)
-    at = wgmma_slabs(q, rows)
+    q = q.contiguous()
+    if q.data_ptr() % 16:
+        q = q.clone()
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = gemm_plan(m, n, sms)
     out = torch.empty((m, n), dtype=torch.int32, device=q.device)
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         check_launch("int8_gemm", lib.int8_gemm_launch(
-            rows, at.data_ptr(), db.data_ptr(), m, n, k, out.data_ptr(), stream))
+            plan.query_rows, plan.grid, q.data_ptr(), db.data_ptr(), m, n, k,
+            out.data_ptr(), stream))
     int8_gemm.launches += 1
     return out
 

@@ -179,6 +179,27 @@ def test_int8_gemm_kernel(cuda, m, n):
         tgemm.int8_gemm(q[:, :96].contiguous(), db[:, :96].contiguous())
 
 
+# The plan's edges: the keyed pass's M = 31 and 248 and a query tile's edge
+# (256, 257) over a chunk; an N no 128-row tile divides; K = 128 (one
+# stage); more tiles than SMs, so each block takes a second tile (M = 300:
+# two query tiles, N = 16,384 + 77: 129 DB tiles).
+@pytest.mark.parametrize("m,n,k", [(31, 16_384, 12_800), (248, 16_384, 12_800),
+                                   (256, 1_000, 12_800), (257, 513, 12_800),
+                                   (31, 16_461, 12_800), (64, 300, 128), (300, 16_461, 256),
+                                   (4_096, 2_000, 384)])
+def test_int8_gemm_kernel_plan_edges(cuda, m, n, k):
+    rng = np.random.default_rng(m + n + k)
+    q = torch.from_numpy(rng.integers(-128, 128, (m, k), dtype=np.int8)).to(cuda)
+    db = torch.from_numpy(rng.integers(-128, 128, (n, k), dtype=np.int8)).to(cuda)
+    plan = tgemm.gemm_plan(m, n, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert (plan.sweeps > 1) == (plan.tiles > plan.grid)
+    got = tgemm.int8_gemm(q, db)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tgemm.int8_gemm_reference(q, db))
+    if m > 16 and n % 8 == 0:
+        assert torch.equal(got, torch._int_mm(q, db.T))
+
+
 # Every block shape of the fused kernel (query rows up to 32, 64, 128, 256
 # and past them), ragged DB rows, and the u64 nonce carry inside the chunk.
 @pytest.mark.parametrize("variant", tkd.VARIANTS)

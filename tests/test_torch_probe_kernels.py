@@ -102,12 +102,14 @@ def test_int8_gemm_full_range_and_cpu_contract():
 
 
 def test_wgmma_slabs_layout():
-    """Element (m, k) of the first operand lands where the kernels' shared-
-    memory descriptors read it: tile m // rows, K-step k // 32, 8-row group,
-    16-byte K half, row in the group, byte (no swizzle); rows past M zero."""
+    """Element (m, k) of the first operand lands where the keyed kernels'
+    shared-memory descriptors read it: tile m // rows, K-step k // 32, 8-row
+    group, 16-byte K half, row in the group, byte (no swizzle); rows past M
+    zero. The rows are the keyed kernels' query tiles; int8_gemm's query
+    tile (the plan's query_rows) covers M the same way."""
     rng = np.random.default_rng(5)
     q = rng.integers(-128, 128, (70, 256), dtype=np.int8)
-    for rows in tgemm.TILE_ROWS:
+    for rows in tgemm.QUERY_TILES:
         x = tgemm.wgmma_slabs(torch.from_numpy(q), rows).numpy()
         g = -(-70 // rows)
         assert x.shape == (g, 256 // 32, rows // 8, 2, 8, 16)
@@ -117,8 +119,40 @@ def test_wgmma_slabs_layout():
             x[m // rows, k // 32, r // 8, (k % 32) // 16, r % 8, k % 16], q)
         assert x.reshape(g * rows, -1).astype(np.int64).__abs__().sum() == np.abs(
             q.astype(np.int64)).sum()  # nothing else is nonzero
-    assert [tgemm.tile_rows(m) for m in (1, 32, 33, 64, 65, 128, 129, 4096)] == [
-        32, 32, 64, 64, 128, 128, 128, 128]
+    assert [tgemm.gemm_plan(m, 1).query_rows for m in (1, 32, 33, 64, 65, 128, 129, 4096)] == [
+        32, 32, 64, 64, 128, 128, 256, 256]
+
+
+# (M, N): the keyed pass at B = 1 and 8 and the scan's B = 128 products over a
+# 16,384-row chunk, every query tile's edge, a ragged DB edge, one DB row, a
+# grid of several sweeps
+@pytest.mark.parametrize("m,n", [(31, 16_384), (248, 16_384), (4_096, 16_384), (1, 1),
+                                 (32, 129), (33, 16_383), (256, 1_000), (257, 513),
+                                 (7_936, 300), (100, 1_000_000)])
+def test_gemm_plan_covers_and_balances(m, n):
+    """int8_gemm's plan: the smallest query tile of 32, 64, 128, 256 that
+    holds M (M <= 256 is one tile: the kernel reads each DB row once), tiles
+    covering every query and DB row (the ragged edge included, the TMA
+    box zero-filling past it), a persistent grid of at most one block an SM
+    that no tile outnumbers, and no SM carrying more DB rows than the best
+    split of N over the SMs at wgmma's 64-row granularity allows, but for
+    half a tile: at N = 16,384 that is 128 rows, so 128 blocks of 128 rows
+    (M <= 256) leave no SM more to stream than 132 blocks would."""
+    sms = tgemm.H100_SMS
+    plan = tgemm.gemm_plan(m, n, sms)
+    assert plan.query_rows == next((t for t in tgemm.QUERY_TILES if m <= t), 256)
+    assert (plan.query_tiles == 1) == (m <= 256)
+    assert (plan.query_tiles - 1) * plan.query_rows < m <= plan.query_tiles * plan.query_rows
+    assert (plan.db_tiles - 1) * tgemm.DB_TILE < n <= plan.db_tiles * tgemm.DB_TILE
+    assert plan.grid == min(plan.tiles, sms) and plan.sweeps * plan.grid >= plan.tiles
+    if m <= 256:
+        best = -(-n // (sms * 64)) * 64  # the busiest SM's DB rows at 64-row granularity
+        assert plan.sweeps * tgemm.DB_TILE <= best + 64
+    if (m, n) in ((31, 16_384), (248, 16_384)):
+        assert plan.grid == 128 and plan.sweeps == 1  # every DB row read once, by one block
+        assert plan.sweeps * tgemm.DB_TILE == -(-n // (sms * 64)) * 64 == 128
+    if m == 4_096:
+        assert plan.tiles == 2_048 and plan.sweeps == 16  # query tile fastest: 16 sweeps
 
 
 # ----------------------------------------------------------- keyed_share_dots
@@ -195,6 +229,69 @@ def test_block_shape():
         (1, 128)]
 
 
+@pytest.mark.parametrize("b", [1, 2, 4, 8])
+def test_serial_shape_fills_the_card(b):
+    """The serial kernel's blocks at B <= 8 (31 B query rows): one warpgroup
+    and 32 DB rows a block, so a 16,384-row chunk launches 512 blocks (more
+    than 2 x 132); the accumulator budget (lo and hi of 32 DB rows against
+    the query tile, int32: 128 registers a thread at most, 64 KB a block at
+    B = 8) leaves room for at least two blocks an SM, in registers and in
+    shared memory."""
+    m = 31 * b
+    shape = tkd.serial_shape(m)
+    assert tkd.serial_grid(m, 16_384) == 512 >= 2 * tgemm.H100_SMS
+    assert shape.query_rows >= m and (shape.query_rows == 32 or 2 * m > shape.query_rows)
+    # lo and hi of 32 DB rows against the query tile, int32, over 128 threads
+    acc_bytes = 2 * tkd.SERIAL_DB_ROWS * shape.query_rows * 4
+    assert shape.accumulators * 4 * tkd.SERIAL_THREADS == acc_bytes
+    assert shape.accumulators <= 128
+    state = 72 if shape.per_thread == 2 else 48
+    regs = tkd.SERIAL_THREADS * (shape.accumulators + state)
+    assert shape.blocks_per_sm >= 2 and shape.blocks_per_sm * regs <= tkd.REGISTERS_PER_SM
+    assert 2 * (shape.smem + 1024) <= 233_472  # two blocks' shared memory (228 KB an SM)
+    assert 400 % shape.steps == 0  # stages tile a row of 400 ChaCha blocks
+    if b == 8:  # two blocks' accumulators are half the 256 KB register file
+        assert (shape.query_rows, shape.per_thread, shape.buffers) == (256, 2, 1)
+        assert 2 * acc_bytes == tkd.REGISTERS_PER_SM * 4 // 2
+    if b == 1:
+        assert (shape.query_rows, shape.per_thread, shape.buffers) == (32, 1, 2)
+
+
+@pytest.mark.parametrize("m,rows", [(31, 32), (33, 64), (248, 256), (300, 256), (5, 128)])
+def test_query_slabs_is_file_order_wgmma_slabs(m, rows):
+    """The fused kernels' query operand by one pad and one gather equals
+    wgmma_slabs of the query's columns in the share file's K order (rows
+    past M zero, several tiles past one tile's rows)."""
+    q = torch.from_numpy(_ternary(m))
+    want = tgemm.wgmma_slabs(q[:, tkd._file_order_index(torch.device("cpu"))], rows)
+    got = tkd.query_slabs(q, rows)
+    assert got.shape == (-(-m // rows), rows * BITS)
+    assert torch.equal(got.reshape(-1), want.reshape(-1))
+
+
+def test_serial_stage_layout_is_wgmma_slabs():
+    """Where the serial kernel stores a regenerated K-step (a mirror of its
+    address arithmetic: thread row r's 16 bytes of a core matrix at
+    (r / 8) x 256 + (r % 8) x 16, the K half 128 further, lo rows 0-31 and
+    hi rows 32-63 of a 2,048-byte slab a K-step) is exactly wgmma_slabs's
+    layout of the 64 rows [lo; hi] with one tile of 64 rows: the layout the
+    kernel's A descriptors (LBO 128, SBO 256) read."""
+    rng = np.random.default_rng(11)
+    steps = 8
+    lo = rng.integers(-128, 128, (32, steps * 32), dtype=np.int8)
+    hi = rng.integers(-128, 128, (32, steps * 32), dtype=np.int8)
+    stage = np.zeros(steps * 2048, dtype=np.int8)
+    for r in range(32):
+        cm = (r // 8) * 256 + (r % 8) * 16
+        for s in range(steps):
+            for plane, base in ((lo, 0), (hi, 4 * 256)):
+                off = s * 2048 + base + cm
+                stage[off:off + 16] = plane[r, s * 32:s * 32 + 16]
+                stage[off + 128:off + 144] = plane[r, s * 32 + 16:s * 32 + 32]
+    want = tgemm.wgmma_slabs(torch.from_numpy(np.concatenate([lo, hi])), 64).numpy()
+    np.testing.assert_array_equal(stage, want.reshape(-1))
+
+
 def test_keyed_share_dots_cpu_contract():
     """A CPU query takes the plain version for both variants and launches
     nothing; bad arguments raise."""
@@ -250,6 +347,31 @@ def test_probe_runner_cpu_rehearsal(tmp_path):
         assert kinds.count("product") == (fam["family"] in ("library", "gemm"))
         assert all(r["max_abs_err"] == 0 and "ms" not in r for r in fam["records"])
     assert "checksums agree across families: True" in proc.stdout
+
+
+@pytest.mark.parametrize("script,argv", [
+    ("probe_kernels_old_vs_new_torch.py", ["--old", "build/parent/mpc_iris_tpu_torch/csrc"]),
+    ("keyed_serial_variants_torch.py", []),
+])
+def test_card_scripts_refuse_the_cpu(script, argv):
+    """The old-against-new and serial-variant scripts import without jax and
+    refuse to run without a card (they time nothing on the CPU); the
+    source lines the variant script patches are where it expects them."""
+    proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", script), *argv],
+                          capture_output=True, text=True, timeout=120, cwd=REPO,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert proc.returncode == 1 and "needs a CUDA card" in proc.stderr, proc.stderr
+    assert "jax" not in proc.stderr
+    if script == "keyed_serial_variants_torch.py":
+        spec = importlib.util.spec_from_file_location("variants", os.path.join(REPO, "scripts",
+                                                                              script))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        with open(os.path.join(REPO, "mpc_iris_tpu_torch", "csrc", "keyed_share_dot.cu")) as f:
+            cu = f.read()
+        assert mod._PRODUCTS in cu and "#undef SERIAL" in cu
+        assert all(tkd.serial_shape(31 * b).launch_args == shapes[0]
+                   for b, shapes in mod.SHAPES.items())
 
 
 def test_chip_smoke_probe_phase_on_cpu(monkeypatch):
