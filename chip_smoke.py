@@ -40,7 +40,8 @@ NVIDIA GPU, at full size, and check them.
 - drives the B = 1 packed-dot probe kernels and the select compare probes
   (``b1_select_probe_phase``; scripts/b1_kernel_probe_torch.py,
   select_variants_torch.py, select_i16_probe_torch.py): ``pk_dot`` (with
-  its epilogue; csrc/b1_packed.cu) and ``pk_select`` (kernel (b)'s
+  its epilogue; csrc/b1_packed.cu's binary kernel, the four AND-popcount
+  products on ``mma.sync`` b1) and ``pk_select`` (kernel (b)'s
   csrc/packed_match.cu with one query) over the 1,048,576-entry packed DB at
   B = 1, pk_select's winner equal to kernel (b) and the unfused scan,
   pk_dot's of the same index and fraction, both outputs bit-equal to their
@@ -818,6 +819,10 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
                         "plain_ms": p_ms, "bound_ms": b_lo, "bound_by": b_by,
                         "library_ms": None})
     print(f"time pk_dot with its epilogue pk_dot_winner N={n}: {w_ms:.4f} ms [{card}]")
+    print(f"pk_dot design: binary, {50 * n} mma.sync m16n8k256 b1 (4 AND-popcount products "
+          f"of 12,800 bits for 32 positions, 50 an entry); its floor is the function's bound, "
+          f"{rows['pk_dot'][2][0]:.4f} ms (the packed DB read once): NVIDIA gives no b1 rate, "
+          "and at the one scripts/b1_packed_variants_torch.py measures the products take less")
     print(f"b1 and select probe phase: {time.perf_counter() - t_phase:.1f} s")
     return entries
 

@@ -1,87 +1,273 @@
 // The B = 1 pk-dot probe kernel over the BIT-PACKED template DB, on the
-// int8 tensor cores.
+// binary tensor cores.
 //
 // Replaces the TPU kernel scripts/b1_kernel_probe.py::make_pk_dot. It takes
 // the probe's operands as given: the query's int8 encoding and mask
 // [32][12,800], rows in the bit-reversed rotation order (position p holds
 // rotation bitrev5(p); row 31 is the all-zero dummy) and K in the
-// bit-plane-major order (k = bit * 1600 + byte), laid out by the wrapper into
-// wgmma's slabs; the DB as uint8 [N][1600] pattern and mask planes. Per
-// (position p, entry e): dot and den, the two int8 products, and num =
-// (den - dot) >> 1; out[p][e] = (den << 16) | num, int32 [32][N] in position
-// order (the probe's epilogue runs outside, in the wrapper's pk_dot_winner).
-// The probe's other kernel, make_pk_select, is kernel (b) at B = 1: its
-// wrapper puts the rows back in rotation order and launches
-// packed_match.cu's kernel with a group of one query.
+// bit-plane-major order (k = bit * 1600 + byte); the DB as uint8 [N][1600]
+// pattern and mask planes. Per (position p, entry e): dot and den, the two
+// int8 products, and num = (den - dot) >> 1; out[p][e] = (den << 16) | num,
+// int32 [32][N] in position order (the probe's epilogue runs outside, in the
+// wrapper's pk_dot_winner). The probe's other kernel, make_pk_select, is
+// kernel (b) at B = 1: its wrapper launches packed_match.cu's kernel.
 //
 // What bounds it on the H100: the 3,200 bytes of packed DB an entry, 1.00 ms
 // at 1M entries at 3.35 TB/s, and the 128 bytes an entry written (0.04 ms),
 // against 0.87 ms of int8 operations (32 rows x 12,800 x 2 products x 2 ops
-// an entry at 1,979 TOPS). So it is bound by bytes. Design: the tile loop of
-// kernel (b) (packed_tile.cuh, Ring::products) with a group of one query
-// (wgmma N = 32): the DB read once as packed bytes and unpacked in registers
-// straight into wgmma's A operand, 256 entries a block; each (den, num)
-// accumulator pair written as one word.
+// an entry at 1,979 TOPS). So the function is bound by bytes.
+//
+// The design is binary. For a bit-valued query (qm = mask bits mq, qe =
+// mq - 2 pmq with pmq its pattern-and-mask bits, as prep_query gives) and the
+// DB's md, pmd = p & m:
+//   den = popc(mq & md),  num = popc(mq & pmd) + popc(pmq & md) - 2 popc(pmq & pmd),
+// four AND-popcount products of packed bits, with no unpack at all, on the
+// binary tensor instruction mma.sync m16n8k256 b1 (1.7 SM clocks each an SM
+// on an H100, as scripts/b1_packed_variants_torch.py measures it: the 52.4M
+// of 1M entries take 0.34 ms). That runner also times the int8 design that
+// lost to this one (scripts/b1_packed_variants.cu).
+// - A 16-row m-tile holds positions 8 mt + g: the mask bits in row g, the
+//   pattern-and-mask bits in row g + 8; an 8-column n-tile holds 4 entries,
+//   column 2i the mask bits of entry i and 2i + 1 its pattern-and-mask bits.
+//   So lane 4g + t's four accumulators are the four products of one
+//   (position, entry), and the epilogue packs (den << 16) | num in
+//   registers. K runs in the packed byte order on both sides (a lane's K
+//   words t and 4 + t are the slab's words 2t and 2t + 1).
+// - The query, 64 rows x 1,600 bytes (the wrapper's pk_dot_operand, rows
+//   padded to 1,632 so a fragment load is two wavefronts), stays in shared
+//   memory; a producer warp brings it once by a bulk copy, then 64 bytes of
+//   every entry of a 256-entry tile a stage by TMA (2-D maps of the
+//   [N][1600] planes, 256-byte L2 promotion; rows past N arrive as zeros)
+//   through a ring of 3 stages. 8 consumer warps take 32 entries each and
+//   the 4 m-tiles, 128 accumulators a thread; a warp loads its A fragments
+//   and B words of a slab, hands the stage back (after fence.proxy.async:
+//   the TMA may refill it at once) and runs 32 mma.sync. Persistent: one
+//   block an SM walks the tiles.
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "packed_tile.cuh"
+#include "tensor_map.cuh"
 
 namespace mpc_iris {
 namespace {
 
-constexpr int kMt = tile::kMt[1];  // M tiles a warpgroup for one query
-using Cfg1 = tile::Cfg<1, kMt>;
+constexpr int kSlabs = tile::kPlane / 32;  // 50 packed 32-byte slabs an entry and plane
+constexpr int kBoxRows = 256;              // rows of a TMA box of the DB planes
 
-// grid: ceil(n_entries / 256). qt: int8 [400][2][32][32] query slabs;
-// dp, dm: uint8 [n_entries][1600]; out: int32 [32][n_entries].
-__global__ void __launch_bounds__(tile::kThreads, 1)
-pk_dot_kernel(const int8_t* __restrict__ qt, const uint8_t* __restrict__ dp,
-              const uint8_t* __restrict__ dm, long long n_entries, int* __restrict__ out) {
-  const long long entry0 = static_cast<long long>(blockIdx.x) * Cfg1::kEntries;
-  const tile::Ring<1, kMt> ring(qt, dp, dm, n_entries, entry0);
-  int acc_dot[kMt][Cfg1::kAcc];
-  int acc_den[kMt][Cfg1::kAcc];
-  ring.products(acc_dot, acc_den);
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int mt = 0; mt < kMt; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long e = entry0 + tile::tile_row<kMt>(mt, h);
-      if (e >= n_entries) continue;
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-#pragma unroll
-        for (int x = 0; x < 2; ++x) {
-          const int k = c * 4 + 2 * h + x;
-          const unsigned den = static_cast<unsigned>(acc_den[mt][k]);
-          const unsigned num = (den - static_cast<unsigned>(acc_dot[mt][k])) >> 1;
-          const int p = 8 * c + 2 * t + x;
-          out[static_cast<size_t>(p) * n_entries + e] = static_cast<int>(num | (den << 16));
-        }
-    }
+// Orders this thread's shared-memory accesses so far before later accesses
+// of the async proxy (TMA, bulk copies): a slot read by threads before the
+// TMA refills it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
-int blocks(long long n_entries) {
-  return static_cast<int>((n_entries + Cfg1::kEntries - 1) / Cfg1::kEntries);
+// D[16 x 8] += popc(A[16 x 256 bits] & B[256 bits x 8]), int32.
+__device__ __forceinline__ void mma_b1_and(int (&d)[4], const uint32_t (&a)[4],
+                                           const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint2 lds64(uint32_t addr) {
+  uint2 v;
+  asm volatile("ld.shared.v2.b32 {%0, %1}, [%2];" : "=r"(v.x), "=r"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+// ---- the kernel
+constexpr int kWarps = 8;                    // consumer warps, 32 entries each
+constexpr int kTile = kWarps * 32;           // entries a tile
+constexpr int kThreads = (kWarps + 1) * 32;  // and one producer warp
+constexpr int kNt = 8;                       // n8 tiles (4 entries each) a warp
+constexpr int kQRow = tile::kPlane + 32;     // query row pitch: 2 wavefronts a fragment load
+constexpr int kQBytes = 64 * kQRow;          // mq rows 0-31, pmq rows 32-63
+// A stage holds kSlabsAStage 32-byte slabs of every entry of the tile: the
+// TMA box is 64 bytes wide, which timed faster than 32 on an H100 though 4
+// entries at a 64-byte pitch make the B loads 2-way bank conflicts.
+constexpr int kSlabsAStage = 2;
+constexpr int kStage = 2 * kTile * 32 * kSlabsAStage;  // pattern rows, then mask rows
+constexpr int kStages = 3;
+constexpr int kTileSteps = kSlabs / kSlabsAStage;  // stages a tile
+constexpr int kBarOff = kQBytes + kStages * kStage;
+constexpr int kSmem = 1024 + kBarOff + 8 * (2 * kStages + 1);
+static_assert(kSlabs % kSlabsAStage == 0, "stages tile the plane");
+
+// Persistent: block b walks tiles b, b + gridDim.x, ... of kTile entries.
+// q: uint8 [64][kQRow] (pk_dot_operand): row p the query's mask bits of
+// position p, row 32 + p its pattern-and-mask bits, packed as the DB is;
+// out: int32 [32][n_entries].
+__global__ void __launch_bounds__(kThreads, 1)
+pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
+              const __grid_constant__ CUtensorMap msk_map, const uint8_t* __restrict__ q,
+              long long n_entries, int tiles, int* __restrict__ out) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (tile::smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t stages = base + kQBytes;
+  const uint32_t full = base + kBarOff;
+  const uint32_t empty = full + 8 * kStages;
+  const uint32_t q_full = empty + 8 * kStages;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tile::mbar_init(full + 8 * s, 1);
+      tile::mbar_init(empty + 8 * s, kWarps);  // one arrival a consumer warp
+    }
+    tile::mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kWarps) {
+    // ---- producer warp: the query once, then 64 bytes of every entry a
+    // stage by TMA
+    if (lane == 0) {
+      const void* pat_tm = &pat_map;
+      const void* msk_tm = &msk_map;
+      tile::mbar_expect_tx(q_full, kQBytes);
+      tile::bulk_copy(base, q, kQBytes, q_full);
+      int it = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        for (int s = 0; s < kTileSteps; ++s, ++it) {
+          const int slot = it % kStages;
+          tile::mbar_wait(empty + 8 * slot, ((it / kStages) & 1) ^ 1);
+          const uint32_t st = stages + slot * kStage;
+          tile::mbar_expect_tx(full + 8 * slot, kStage);
+          tile::tma_load_2d(st, pat_tm, s * 32 * kSlabsAStage, t * kTile, full + 8 * slot);
+          tile::tma_load_2d(st + kStage / 2, msk_tm, s * 32 * kSlabsAStage, t * kTile,
+                            full + 8 * slot);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warps: 32 entries each, the 4 products of all 32
+  // positions. Lane (g, t4): A rows g (mask bits of position 8 mt + g) and
+  // g + 8 (its pattern-and-mask bits) of m-tile mt; B column g, entry
+  // 4 nt + g / 2 of the warp's, its mask bits (g even) or pattern-and-mask
+  // bits (g odd); the K words of its fragment registers (t4, 4 + t4) are the
+  // slab's words 2 t4 and 2 t4 + 1, the same on both sides.
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const uint32_t q_lane = base + g * kQRow + 8 * t4;
+  const uint32_t b_lane = (32 * warp + g / 2) * 32 * kSlabsAStage + 8 * t4;
+  const uint32_t keep_pat = (g & 1) ? 0u : ~0u;  // even columns: the mask bits alone
+  tile::mbar_wait(q_full, 0);
+  int it = 0;
+#pragma unroll 1
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    int acc[kNt][4][4];
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[nt][mt][i] = 0;
+#pragma unroll 1
+    for (int s = 0; s < kTileSteps; ++s, ++it) {
+      const int slot = it % kStages;
+      const uint32_t st = stages + slot * kStage + b_lane;
+#pragma unroll
+      for (int w = 0; w < kSlabsAStage; ++w) {
+        const int c = s * kSlabsAStage + w;
+        uint32_t a[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const uint2 lo = lds64(q_lane + 8 * mt * kQRow + c * 32);
+          const uint2 hi = lds64(q_lane + (32 + 8 * mt) * kQRow + c * 32);
+          a[mt][0] = lo.x;
+          a[mt][1] = hi.x;
+          a[mt][2] = lo.y;
+          a[mt][3] = hi.y;
+        }
+        if (w == 0) tile::mbar_wait(full + 8 * slot, (it / kStages) & 1);
+        uint32_t b[kNt][2];
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          const uint2 p = lds64(st + nt * 4 * 32 * kSlabsAStage + 32 * w);
+          const uint2 m = lds64(st + kStage / 2 + nt * 4 * 32 * kSlabsAStage + 32 * w);
+          b[nt][0] = m.x & (p.x | keep_pat);
+          b[nt][1] = m.y & (p.y | keep_pat);
+          tile::reg_fence(b[nt][0]);
+          tile::reg_fence(b[nt][1]);
+        }
+        if (w == kSlabsAStage - 1) {
+          // the slot goes back to the TMA (the async proxy) only after
+          // every lane's loads from it are done
+          fence_proxy_async();
+          __syncwarp();
+          if (lane == 0) tile::mbar_arrive(empty + 8 * slot);
+        }
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) mma_b1_and(acc[nt][mt], a[mt], b[nt]);
+      }
+    }
+    // registers 0-3: popc(mq & md) = den, popc(mq & pmd), popc(pmq & md),
+    // popc(pmq & pmd) of position 8 mt + g and entry 4 nt + t4 of the warp's;
+    // num = (den - dot) >> 1 with dot = den - 2 (x + y) + 4 z
+    const long long e0 = static_cast<long long>(t) * kTile + 32 * warp + t4;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      const long long e = e0 + 4 * nt;
+      if (e >= n_entries) continue;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        const int* d = acc[nt][mt];
+        const unsigned num = static_cast<unsigned>(d[1] + d[2] - 2 * d[3]);
+        __stcs(out + static_cast<size_t>(8 * mt + g) * n_entries + e,
+               static_cast<int>(num | (static_cast<unsigned>(d[0]) << 16)));
+      }
+    }
+  }
+}
+
+int launch(const void* q, const void* dp, const void* dm, long long n_entries, void* out,
+           cudaStream_t stream) {
+  CUtensorMap pat_map;
+  CUtensorMap msk_map;
+  if (!tma::make_map_2d(&pat_map, dp, n_entries, tile::kPlane, 32 * kSlabsAStage, kBoxRows,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tma::make_map_2d(&msk_map, dm, n_entries, tile::kPlane, 32 * kSlabsAStage, kBoxRows,
+                        CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int device = 0;
+  int sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(pk_dot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = (n_entries + kTile - 1) / kTile;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  pk_dot_kernel<<<grid, kThreads, kSmem, stream>>>(
+      pat_map, msk_map, static_cast<const uint8_t*>(q), n_entries, static_cast<int>(tiles),
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace mpc_iris
 
-// qt: int8 [400][2][32][32] query slabs (the wrapper's layout); dp, dm: uint8
+// q: uint8 [64][1,632] (the wrapper's pk_dot_operand); dp, dm: uint8
 // [n_entries][1600], 16-byte aligned; out: int32 [32][n_entries]. Launches on
-// `stream`; returns cudaGetLastError().
-extern "C" int pk_dot_launch(const void* qt, const void* dp, const void* dm, long long n_entries,
+// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue for a tensor map
+// cuTensorMapEncodeTiled refuses).
+extern "C" int pk_dot_launch(const void* q, const void* dp, const void* dm, long long n_entries,
                              void* out, void* stream) {
-  using namespace mpc_iris;
-  cudaError_t err = cudaFuncSetAttribute(pk_dot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Cfg1::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pk_dot_kernel<<<blocks(n_entries), tile::kThreads, Cfg1::kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qt), static_cast<const uint8_t*>(dp),
-      static_cast<const uint8_t*>(dm), n_entries, static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  return mpc_iris::launch(q, dp, dm, n_entries, out, static_cast<cudaStream_t>(stream));
 }

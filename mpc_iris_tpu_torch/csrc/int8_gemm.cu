@@ -39,6 +39,7 @@
 #include <cstdint>
 
 #include "packed_tile.cuh"
+#include "tensor_map.cuh"
 
 namespace mpc_iris {
 namespace {
@@ -170,53 +171,14 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up through the runtime, so the library needs
-// no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &status);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    return err == cudaSuccess && status == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A 2-D map of int8 [rows][k] (row-major) with boxes of box_rows x 128 bytes,
-// 128-byte swizzle, zero fill past the end.
-bool make_map(CUtensorMap* map, const void* ptr, int rows, int k, int box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k)};
-  const cuuint32_t box[2] = {kKBytes, static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int BQ>
 int launch(int grid, const void* q, const void* db, int m, int n, int k, void* c,
            cudaStream_t stream) {
   using C = GemmCfg<BQ>;
   CUtensorMap q_map;
   CUtensorMap db_map;
-  if (!make_map(&q_map, q, m, k, BQ) || !make_map(&db_map, db, n, k, kDbRows)) {
+  if (!tma::make_map_2d(&q_map, q, m, k, kKBytes, BQ, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tma::make_map_2d(&db_map, db, n, k, kKBytes, kDbRows, CU_TENSOR_MAP_SWIZZLE_128B)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int n_qt = (m + BQ - 1) / BQ;

@@ -11,7 +11,12 @@ bitrev5(p), row 31 the all-zero dummy) and K in the bit-plane-major order of
 :func:`bitplane_perm`; the DB as uint8 [N, 1600] pattern and mask planes.
 
 - :func:`pk_dot` gives int32 [32, N] = ``(den << 16) | num`` per (position,
-  entry), the probe's ``make_pk_dot`` kernel. Its epilogue is
+  entry), the probe's ``make_pk_dot`` kernel. Its kernel is binary: the four
+  AND-popcount products of the query's mask and pattern-and-mask bits
+  (:func:`pk_dot_operand`) against the DB's, on the ``mma.sync`` b1 tensor
+  instruction, no unpack. So it takes only a bit-valued query pair
+  (:func:`bit_valued`), as :func:`prep_query` gives, where the probe's
+  kernel takes any int8 rows; it raises on another. Its epilogue is
   :func:`pk_dot_winner`, plain torch as the probe's is XLA outside the
   kernel. It reduces the 31 rotation positions in POSITION order, so on
   equal fractions it keeps the lowest position, not the earliest rotation:
@@ -46,6 +51,7 @@ from mpc_iris_tpu_torch.ops.select import N_ROT_PAD, ROT_BITREV, select_chunk_re
 
 PLANE = BITS_BYTES        # packed bytes an entry and plane: one K slab of 1,600
 _REFERENCE_ENTRIES = 16_384  # DB entries a piece of the plain versions unpack
+Q_ROW = PLANE + 32    # pk_dot's query row pitch (csrc/b1_packed.cu kQRow)
 
 
 @functools.cache
@@ -130,8 +136,9 @@ def _rot_bitrev_index(device: torch.device) -> torch.Tensor:
 
 
 def _query_slabs(qe: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
-    """(qe, qm) int8 [32, 12,800] -> int8 [50, 8, 2, 4, 2, 8, 16], the
-    kernels' query operand (``packed_tile.cuh``): per K-step (byte slab jj,
+    """(qe, qm) int8 [32, 12,800] -> int8 [50, 8, 2, 4, 2, 8, 16], kernel
+    (b)'s query operand of one query (``packed_tile.cuh``), which
+    :func:`pk_select` launches: per K-step (byte slab jj,
     bit-plane b) the encoding and the mask slab of 32 rows x 32 bytes, in
     the order wgmma reads them from shared memory (8-row groups, the two
     16-byte K halves, 8 rows, 16 bytes). K is already bit-plane-major, k =
@@ -141,6 +148,31 @@ def _query_slabs(qe: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
         return x.permute(3, 2, 0, 4, 1, 5)                       # jj, b, nh, kh, nl, kl
 
     return torch.stack([operand(qe), operand(qm)], dim=2).contiguous()
+
+
+def pack_bitplane_major(bits: torch.Tensor) -> torch.Tensor:
+    """0/1 bytes [R, 12,800], K bit-plane-major -> uint8 [R, 1600] packed as
+    the DB is: bit b of byte j is K index b * 1600 + j."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device).view(1, 8, 1)
+    planes = bits.view(torch.uint8).view(bits.shape[0], 8, PLANE)
+    return (planes << shifts).sum(dim=1, dtype=torch.uint8)
+
+
+def pk_dot_operand(qe: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
+    """(qe, qm) of :func:`prep_query` -> uint8 [64, Q_ROW], pk_dot's query
+    operand, the layout of its kernel's shared memory: row p the mask
+    bits of position p, row 32 + p its pattern-and-mask bits (qe = -1),
+    packed as the DB is, each row padded by 32 zero bytes. It stands for the
+    query only where :func:`bit_valued` holds."""
+    bits = torch.cat([qm, (qe < 0).view(torch.int8)])
+    return torch.nn.functional.pad(pack_bitplane_major(bits), (0, Q_ROW - PLANE))
+
+
+def bit_valued(qe: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
+    """Whether the query pair is bit-valued, qm in {0, 1} and qe in {-qm,
+    qm}, as :func:`prep_query` gives: a bool tensor on the query's device."""
+    q = qe.to(torch.int16)
+    return ~((q * q - qm) | (qm >> 1)).any()
 
 
 def _launch_args(name: str, qe, qm, pat, msk):
@@ -172,18 +204,29 @@ def _launch_args(name: str, qe, qm, pat, msk):
 def pk_dot(qe: torch.Tensor, qm: torch.Tensor, pat: torch.Tensor,
            msk: torch.Tensor) -> torch.Tensor:
     """The probe's pk-dot kernel: int32 [32, N] = (den << 16) | num per
-    (query position, DB entry), one launch of ``pk_dot_kernel`` for CUDA
-    tensors."""
+    (query position, DB entry), one launch of ``csrc/b1_packed.cu`` for CUDA
+    tensors. The query must be :func:`bit_valued`: the call reads that check
+    back after the launch, so it waits for the card (the check is copied out
+    ahead of the kernel, so back-to-back calls keep the card busy), and it
+    raises ValueError, dropping the output, on a query that fails it."""
     lib = _launch_args("pk_dot", qe, qm, pat, msk)
     if lib is None:
         return pk_dot_reference(qe, qm, pat, msk)
     out = torch.empty((N_ROT_PAD, pat.shape[0]), dtype=torch.int32, device=qe.device)
-    qt = _query_slabs(qe, qm)
     with torch.cuda.device(qe.device):
+        q = pk_dot_operand(qe, qm)
+        valid = torch.empty((), dtype=torch.bool, pin_memory=True)
+        valid.copy_(bit_valued(qe, qm), non_blocking=True)
+        checked = torch.cuda.Event()
+        checked.record()
         stream = torch.cuda.current_stream().cuda_stream
-        check_launch("pk_dot", lib.pk_dot_launch(
-            qt.data_ptr(), pat.data_ptr(), msk.data_ptr(), pat.shape[0], out.data_ptr(), stream))
+        check_launch("pk_dot", lib.pk_dot_launch(q.data_ptr(), pat.data_ptr(), msk.data_ptr(),
+                                                 pat.shape[0], out.data_ptr(), stream))
     pk_dot.launches += 1
+    checked.synchronize()
+    if not bool(valid):
+        raise ValueError("pk_dot: the query must be bit-valued (qm in {0, 1}, qe in {-qm, qm}), "
+                         "as prep_query gives")
     return out
 
 

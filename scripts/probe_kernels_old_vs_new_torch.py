@@ -1,12 +1,13 @@
-"""Old against new design of the port's two redesigned probe kernels, on one
-card in one process: ``int8_gemm`` (csrc/int8_gemm.cu) and the serial fused
-keyed kernel (csrc/keyed_share_dot.cu, ``variant="serial"``), each beside
-its yardstick, and the pipelined variant, whose code did not change, re-timed
-beside them.
+"""Old against new design of the port's redesigned probe kernels, on one
+card in one process: ``int8_gemm`` (csrc/int8_gemm.cu), the serial fused
+keyed kernel (csrc/keyed_share_dot.cu, ``variant="serial"``) and the B = 1
+pk-dot kernel (csrc/b1_packed.cu), each beside its yardstick, and the
+pipelined keyed variant, whose code did not change, re-timed beside them.
+``--kernels`` picks the families (default all three).
 
 The old design is built from a directory holding an earlier commit's
-``mpc_iris_tpu_torch/csrc`` (its int8_gemm.cu and keyed_share_dot.cu with
-the headers they include), unpacked beforehand, for example
+``mpc_iris_tpu_torch/csrc`` (its int8_gemm.cu, keyed_share_dot.cu and
+b1_packed.cu with the headers they include), unpacked beforehand, for example
 
     git archive <commit> mpc_iris_tpu_torch/csrc | tar -x -C build/parent
     python scripts/probe_kernels_old_vs_new_torch.py \\
@@ -15,7 +16,9 @@ the headers they include), unpacked beforehand, for example
 It is compiled by nvcc (the flags of ``ops/_build.py``) into its own library
 under ``mpc_iris_tpu_torch/build/`` and called through its own C interface
 (``int8_gemm_launch`` with the query laid out by ``wgmma_slabs``,
-``keyed_share_dots_launch``). The new design is the package's.
+``keyed_share_dots_launch``, and the ``pk_dot_launch(qt, dp, dm, n, out,
+stream)`` of the design on kernel (b)'s tile loop, the query laid out by
+``_query_slabs``). The new design is the package's.
 
 Measured, CUDA events, in turns (old, new, new, old; the median of each
 design's two turns): ``int8_gemm`` at [M x 12,800] . [16,384 x 12,800] for
@@ -23,13 +26,16 @@ M = 31, 248, 4,096 (the keyed pass at B = 1, 8 and the scan's products at
 B = 128) beside ``torch._int_mm``; the keyed kernels on a 16,384-row chunk
 at B = 1 and 8 beside kernel (d) alone and kernel (d) + ``dot_share_batch``.
 Each design is timed as its wrapper ran it (the per-call query layout
-included) and as its kernel alone (operands prepared once).
-Every output is checked bit for bit: old against new, and the products
-against ``torch._int_mm``. Then, from ``cuobjdump -sass`` of the package's
-library, the instruction mix of ChaCha20 in kernel (d) and in the serial
-kernel's stage loop, by pipe, and the bound it gives (a 16-lane integer pipe
-for the xor, funnel-shift and byte-permute instructions: 64 lanes an SM a
-clock). Prints the card's name, power limit and SM clock. Needs a CUDA card.
+included) and as its kernel alone (operands prepared once). pk-dot over
+1,048,576 packed entries at B = 1 (made on the card from the seed, with an
+all-masked and an all-set entry), the same way.
+Every output is checked bit for bit: old against new, the products
+against ``torch._int_mm``, pk-dot against ``pk_dot_reference``. Then, from
+``cuobjdump -sass`` of the package's library, the instruction mix of
+ChaCha20 in kernel (d) and in the serial kernel's stage loop, by pipe, and
+the bound it gives (a 16-lane integer pipe for the xor, funnel-shift and
+byte-permute instructions: 64 lanes an SM a clock). Prints the card's name,
+power limit and SM clock. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -51,8 +57,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
-from mpc_iris_tpu_torch.constants import BITS  # noqa: E402
+from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES  # noqa: E402
 from mpc_iris_tpu_torch.ops import _build  # noqa: E402
+from mpc_iris_tpu_torch.ops.b1_packed import (  # noqa: E402
+    _query_slabs,
+    pk_dot,
+    pk_dot_operand,
+    pk_dot_reference,
+    prep_query,
+)
 from mpc_iris_tpu_torch.ops.chacha import key_tensor, share_planes_kernel  # noqa: E402
 from mpc_iris_tpu_torch.ops.dot import dot_share_batch  # noqa: E402
 from mpc_iris_tpu_torch.ops.gemm import int8_gemm, wgmma_slabs  # noqa: E402
@@ -65,6 +78,8 @@ from mpc_iris_tpu_torch.ops.keyed_dot import (  # noqa: E402
 )
 
 CHUNK = 16_384
+PK_DB = 1_048_576
+KERNELS = ("gemm", "keyed", "pk_dot")
 PRODUCT_ROWS = (31, 248, 4_096)
 BATCHES = (1, 8)
 REPS = 20
@@ -99,13 +114,15 @@ def in_turns(old, new) -> tuple[float, float]:
     return float(np.median([o1, o2])), float(np.median([n1, n2]))
 
 
-def build_old(csrc: str) -> ctypes.CDLL:
-    names = ("int8_gemm.cu", "keyed_share_dot.cu")
+def build_old(csrc: str, kernels=KERNELS) -> ctypes.CDLL:
+    files = {"gemm": "int8_gemm.cu", "keyed": "keyed_share_dot.cu", "pk_dot": "b1_packed.cu"}
+    names = sorted(files[k] for k in kernels)
     h = hashlib.sha256()
     for f in sorted(os.listdir(csrc)):
         h.update(f.encode())
         with open(os.path.join(csrc, f), "rb") as fh:
             h.update(fh.read())
+    h.update(" ".join(names).encode())
     out = _build.BUILD_DIR / f"libold_probe_kernels_{h.hexdigest()[:16]}.so"
     if not out.exists():
         _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -113,10 +130,14 @@ def build_old(csrc: str) -> ctypes.CDLL:
         subprocess.run([_build._nvcc(), *flags, "-shared", "-o", str(out),
                         *(os.path.join(csrc, n) for n in names)], check=True)
     lib = ctypes.CDLL(str(out))
-    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.int8_gemm_launch.argtypes = [i, p, p, i, i, i, p, p]
-    lib.keyed_share_dots_launch.argtypes = [i, i, i, p, p, p, u, u, i, i, p, p]
-    lib.int8_gemm_launch.restype = lib.keyed_share_dots_launch.restype = i
+    p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
+    signatures = {"int8_gemm_launch": [i, p, p, i, i, i, p, p],
+                  "keyed_share_dots_launch": [i, i, i, p, p, p, u, u, i, i, p, p],
+                  "pk_dot_launch": [p, p, p, ll, p, p]}
+    for name, argtypes in signatures.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = i
     return lib
 
 
@@ -184,6 +205,70 @@ def keyed_runs(old_lib, q_nat, kw, variant: str, prepared: bool):
     return old, new
 
 
+def pk_inputs(n: int, seed: int, dev: torch.device):
+    """(qe, qm, pat, msk): a random packed query through ``prep_query`` and
+    a packed DB [n, 1600] made on the card from the seed, entry 0 all masked
+    (den = 0) and the last entry all set."""
+    rng = np.random.default_rng(seed)
+    qpat, qmsk = (torch.from_numpy(rng.integers(0, 256, (1, BITS_BYTES), dtype=np.uint8)).to(dev)
+                  for _ in range(2))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    pat, msk = (torch.randint(0, 256, (n, BITS_BYTES), generator=g, device=dev,
+                              dtype=torch.uint8) for _ in range(2))
+    msk[0] = 0
+    pat[-1] = msk[-1] = 255
+    return (*prep_query(qpat, qmsk), pat, msk)
+
+
+def old_pk_dot(lib, qe, qm, pat, msk, prepared: bool):
+    """The old pk-dot: kernel (b)'s tile loop with one query, its operand
+    laid out by ``_query_slabs`` per call (``prepared``: once)."""
+    fixed = _query_slabs(qe, qm) if prepared else None
+    out = torch.empty((32, pat.shape[0]), dtype=torch.int32, device=qe.device)
+
+    def run():
+        qt = fixed if prepared else _query_slabs(qe, qm)
+        rc = lib.pk_dot_launch(qt.data_ptr(), pat.data_ptr(), msk.data_ptr(), pat.shape[0],
+                               out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old pk_dot launch failed: {rc}")
+        return out
+    return run
+
+
+def new_pk_dot_kernel(qe, qm, pat, msk):
+    """The package's pk-dot kernel alone: its operand laid out once."""
+    a = pk_dot_operand(qe, qm)
+    out = torch.empty((32, pat.shape[0]), dtype=torch.int32, device=qe.device)
+    lib = _build.library()
+
+    def run():
+        _build.check_launch("pk_dot", lib.pk_dot_launch(
+            a.data_ptr(), pat.data_ptr(), msk.data_ptr(), pat.shape[0], out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream))
+        return out
+    return run
+
+
+def pk_dot_turns(old, card: str) -> dict:
+    """Old against new pk-dot over PK_DB entries, as the wrappers run them
+    and as kernels alone, each output against pk_dot_reference."""
+    args = pk_inputs(PK_DB, 0, torch.device("cuda"))
+    want = pk_dot_reference(*args)
+    runs = {"old": old_pk_dot(old, *args, False), "new": lambda: pk_dot(*args),
+            "old_kernel": old_pk_dot(old, *args, True), "new_kernel": new_pk_dot_kernel(*args)}
+    equal = all(torch.equal(f(), want) for f in runs.values())
+    del want
+    o_ms, n_ms = in_turns(runs["old"], runs["new"])
+    ok_ms, nk_ms = in_turns(runs["old_kernel"], runs["new_kernel"])
+    rec = {"old_ms": o_ms, "new_ms": n_ms, "old_kernel_ms": ok_ms, "new_kernel_ms": nk_ms,
+           "equal": equal, "entries": PK_DB}
+    print(f"pk_dot N={PK_DB} B=1: old {o_ms:.4f} ms, new {n_ms:.4f} ms (the kernel alone, "
+          f"operand prepared once: old {ok_ms:.4f}, new {nk_ms:.4f}); speed-up "
+          f"{o_ms / n_ms:.2f}x; bit-equal to pk_dot_reference {equal} [{card}]")
+    return rec
+
+
 def sass_functions(path: str) -> dict:
     """SASS opcodes of each kernel of a library (cuobjdump -sass)."""
     cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -239,39 +324,30 @@ def sass_bound(sm_clock_mhz: float, sms: int) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", required=True, help="the earlier commit's mpc_iris_tpu_torch/csrc")
-    ap.add_argument("--out", default=None, help="write the results as JSON here")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda")
-    card = card_line()
-    print(f"card: {card}")
-    old = build_old(args.old)
-    rng = np.random.default_rng(0)
-    res = {"card": card, "script": "scripts/probe_kernels_old_vs_new_torch.py", "gemm": {},
-           "keyed": {}}
-    ok = True
-
+def gemm_turns(old, rng, dev, card: str) -> dict:
+    """Old against new int8_gemm at M = PRODUCT_ROWS, beside torch._int_mm."""
+    res = {}
     db = torch.from_numpy(rng.integers(-128, 128, (CHUNK, BITS), dtype=np.int8)).to(dev)
     for m in PRODUCT_ROWS:
         q = torch.from_numpy(rng.integers(-1, 2, (m, BITS), dtype=np.int8)).to(dev)
         want = torch._int_mm(q, db.T)
         equal = (torch.equal(old_gemm(old, q, db, False)(), want)
                  and torch.equal(int8_gemm(q, db), want))
-        ok &= equal
         o_ms, n_ms = in_turns(old_gemm(old, q, db, False), lambda: int8_gemm(q, db))
         ok_ms, _ = in_turns(old_gemm(old, q, db, True), lambda: int8_gemm(q, db))
         lib_ms = cuda_ms(lambda: torch._int_mm(q, db.T))
-        res["gemm"][m] = {"old_ms": o_ms, "new_ms": n_ms, "old_kernel_ms": ok_ms,
-                          "int_mm_ms": lib_ms, "equal": equal}
+        res[m] = {"old_ms": o_ms, "new_ms": n_ms, "old_kernel_ms": ok_ms, "int_mm_ms": lib_ms,
+                  "equal": equal}
         print(f"int8_gemm M={m}: old {o_ms:.4f} ms (its kernel alone {ok_ms:.4f}), new "
               f"{n_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms; bit-equal {equal} [{card}]")
         del want
+    return res
 
+
+def keyed_turns(old, rng, dev, card: str) -> dict:
+    """Old against new keyed kernels (serial, pipelined) at B = BATCHES,
+    beside kernel (d) alone and (d) + dot_share_batch."""
+    res = {}
     kw = key_tensor(KEY, dev)
     for b in BATCHES:
         q = torch.from_numpy(rng.integers(-1, 2, (31 * b, BITS), dtype=np.int8)).to(dev)
@@ -282,7 +358,6 @@ def main() -> int:
             want = keyed_share_dots(q, kw, 0, 0, CHUNK, variant=variant)
             equal = all(torch.equal(f(), want) for f in (old_call, new_call, old_kernel,
                                                          new_kernel))
-            ok &= equal
             o_ms, n_ms = in_turns(old_call, new_call)
             ok_ms, nk_ms = in_turns(old_kernel, new_kernel)
             rec[variant] = {"old_ms": o_ms, "new_ms": n_ms, "old_kernel_ms": ok_ms,
@@ -290,7 +365,7 @@ def main() -> int:
         rec["d_ms"] = cuda_ms(lambda: share_planes_kernel(kw, 0, 0, CHUNK))
         rec["d_products_ms"] = cuda_ms(
             lambda: dot_share_batch(q, *share_planes_kernel(kw, 0, 0, CHUNK)))
-        res["keyed"][b] = rec
+        res[b] = rec
         for variant in ("serial", "pipelined"):
             r = rec[variant]
             print(f"keyed chunk {CHUNK} rows B={b} {variant}: old {r['old_ms']:.4f} ms, new "
@@ -299,11 +374,40 @@ def main() -> int:
                   f"{r['equal']} [{card}]")
         print(f"keyed chunk {CHUNK} rows B={b}: kernel (d) alone {rec['d_ms']:.4f} ms, (d) + "
               f"products {rec['d_products_ms']:.4f} ms [{card}]")
+    return res
 
-    max_mhz = float(card.split(",")[-1].strip().split()[0])
-    res["sass"] = sass_bound(max_mhz, torch.cuda.get_device_properties(dev).multi_processor_count)
-    for what, mix in res["sass"].items():
-        print(f"sass {what}: {json.dumps(mix)}")
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--old", required=True, help="the earlier commit's mpc_iris_tpu_torch/csrc")
+    ap.add_argument("--out", default=None, help="write the results as JSON here")
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS),
+                    help="the families to compare (default all)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    old = build_old(args.old, args.kernels)
+    rng = np.random.default_rng(0)
+    res = {"card": card, "script": "scripts/probe_kernels_old_vs_new_torch.py"}
+    ok = True
+    if "gemm" in args.kernels:
+        res["gemm"] = gemm_turns(old, rng, dev, card)
+        ok &= all(r["equal"] for r in res["gemm"].values())
+    if "keyed" in args.kernels:
+        res["keyed"] = keyed_turns(old, rng, dev, card)
+        ok &= all(r[v]["equal"] for r in res["keyed"].values() for v in ("serial", "pipelined"))
+        max_mhz = float(card.split(",")[-1].strip().split()[0])
+        res["sass"] = sass_bound(max_mhz,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+        for what, mix in res["sass"].items():
+            print(f"sass {what}: {json.dumps(mix)}")
+    if "pk_dot" in args.kernels:
+        res["pk_dot"] = pk_dot_turns(old, card)
+        ok &= res["pk_dot"]["equal"]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

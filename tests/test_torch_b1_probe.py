@@ -4,9 +4,15 @@ probe's, the plain versions of pk-dot and pk-select against the JAX probe
 kernels themselves in interpret mode, the pk-dot epilogue against the
 probe's on crafted rotation and index ties (where pk-dot and pk-select
 differ), the kernels' query layout, the wrappers' device contract, the
-runner's CPU check and chip_smoke.py's phase rehearsed on the CPU. Every
-comparison is exact (tolerance 0). The kernels themselves run in
-tests/test_torch_gpu.py on a card.
+runner's CPU check and chip_smoke.py's phase rehearsed on the CPU; and the
+algebra of pk-dot's kernel (csrc/b1_packed.cu, binary: the four
+AND-popcount products of the packed operand's rows against the DB's mask
+and pattern-and-mask bits) and of the int8 design that
+scripts/b1_packed_variants_torch.py times beside it (its query rows against
+the mask bits and the pattern-and-mask bits times -2) through
+``torch._int_mm``, their operand layouts index by index, and the
+accumulator registers each thread holds. Every comparison is exact (tolerance 0). The kernels themselves run
+in tests/test_torch_gpu.py on a card.
 """
 
 import functools
@@ -24,7 +30,7 @@ import torch
 from mpc_iris_tpu.ops.decode import fraction_argmin, fraction_min_rotations
 from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES, N_ROTATIONS
 from mpc_iris_tpu_torch.ops import b1_packed as bp
-from mpc_iris_tpu_torch.ops.packed_match import _query_tiles
+from mpc_iris_tpu_torch.ops.packed_match import _query_tiles, planted_packed_case
 from mpc_iris_tpu_torch.ops.scan import _match_scan_packed, prepare_query_planes
 from mpc_iris_tpu_torch.ops.select import select_chunk_reference
 
@@ -47,6 +53,16 @@ def one_torch_thread():
 def _probe():
     spec = importlib.util.spec_from_file_location(
         "b1_kernel_probe", os.path.join(REPO, "scripts", "b1_kernel_probe.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.cache
+def _variants():
+    """scripts/b1_packed_variants_torch.py, the int8 design's operand layout."""
+    spec = importlib.util.spec_from_file_location(
+        "b1_packed_variants_torch", os.path.join(REPO, "scripts", "b1_packed_variants_torch.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -199,6 +215,169 @@ def test_query_slabs_are_kernel_b_tiles():
     rev = torch.as_tensor(bp.ROT_BITREV)
     assert torch.equal(bp._query_slabs(qe[rev], qmk[rev]),
                        _query_tiles(*prepare_query_planes(qp, qm), 1)[0])
+
+
+def _mirror_int8(qe, qm, pat, msk):
+    """The int8 design's algebra on the CPU: the stacked query rows [A1 | A2]
+    of the runner's dot_den_rows against [m | -2 (p & m)] (K bit-plane-major) in one
+    exact int8 product, then the epilogue reading dot(p) from row 16w + g and
+    den(p) from row 16w + 8 + g, p = 8w + g."""
+    enc, m = bp._unpack_bitplane_major(pat, msk)
+    a = torch.cat(_variants().dot_den_rows(qe, qm), dim=1)            # [64, 2K]
+    d = torch._int_mm(a, torch.cat([m, enc - m], dim=1).T)   # enc - m = -2 (p & m)
+    rows = d.view(4, 2, 8, pat.shape[0])                     # w, dot|den, g, entry
+    dot, den = rows[:, 0].reshape(32, -1), rows[:, 1].reshape(32, -1)
+    return ((den - dot) >> 1) | (den << 16)
+
+
+def _bits(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 [R, 1600] -> int8 0/1 [R, 12,800], bit b of byte j at 8 j + b:
+    any order serves, the same on both sides of a product."""
+    shifts = torch.arange(8, dtype=torch.uint8)
+    return ((packed.unsqueeze(-1) >> shifts) & 1).reshape(packed.shape[0], -1).to(torch.int8)
+
+
+def _mirror_b1(qe, qm, pat, msk):
+    """pk_dot's kernel's algebra on the CPU: the operand's 64 rows (mask
+    bits, pattern-and-mask bits of each position) against the DB's columns
+    (mask bits, pattern-and-mask bits of each entry), the AND-popcounts as
+    an exact 0/1 int8 product; then den = mq . md and num = mq . pmd +
+    pmq . md - 2 pmq . pmd."""
+    a = _bits(bp.pk_dot_operand(qe, qm)[:, :BITS_BYTES])
+    cols = torch.stack([_bits(msk), _bits(pat & msk)], dim=1).reshape(-1, BITS)
+    d = torch._int_mm(a, cols.T).view(2, 32, -1, 2)        # mq|pmq, p, entry, md|pmd
+    den = d[0, :, :, 0]
+    return (d[0, :, :, 1] + d[1, :, :, 0] - 2 * d[1, :, :, 1]) | (den << 16)
+
+
+def _mirror_case(kind: str, n: int):
+    """(qe, qm, pat, msk): random planes with an all-masked entry (den = 0)
+    and an all-set one; planted_packed_case's rotation ties, duplicates at
+    129 and 257 and all-invalid entry against its query 0; or _db's index
+    tie (the query at 17 and n - 3)."""
+    if kind == "index-tie":
+        return _torch_args(n, 2)
+    if kind == "planted":
+        pat, msk, qpat, qmsk = planted_packed_case(np.random.default_rng(8), n=n, b=1)
+    else:
+        rng = np.random.default_rng(n)
+        pat = rng.integers(0, 256, (n, BITS_BYTES), dtype=np.uint8)
+        msk = rng.integers(0, 256, (n, BITS_BYTES), dtype=np.uint8)
+        qpat, qmsk = pat[:1].copy(), msk[:1].copy()
+        qpat ^= rng.integers(0, 256, qpat.shape, dtype=np.uint8) & 0x11
+        msk[0] = 0
+        pat[-1] = msk[-1] = 255
+    qe, qm = bp.prep_query(torch.from_numpy(qpat), torch.from_numpy(qmsk))
+    return qe, qm, torch.from_numpy(pat), torch.from_numpy(msk)
+
+
+@pytest.mark.parametrize("design", ["b1", "int8"])
+@pytest.mark.parametrize("kind,n", [("random", 1), ("random", 255), ("random", 257),
+                                    ("random", 1500), ("planted", 700), ("index-tie", 1024)])
+def test_pk_dot_kernel_algebra_equals_reference(design, kind, n):
+    args = _mirror_case(kind, n)
+    want = bp.pk_dot_reference(*args)
+    assert torch.equal((_mirror_b1 if design == "b1" else _mirror_int8)(*args), want)
+    if n > 1:
+        assert int((want >> 16).min()) == 0  # den = 0: the all-masked entry or the dummy row
+
+
+def test_pk_dot_int8_mirror_any_int8_query():
+    """The int8 design is exact for any int8 query rows, not only
+    prep_query's {-1, 0, 1} and {0, 1}: A2 repeats qe and the -2 sits on the
+    DB side. pk_dot's binary kernel refuses such a query."""
+    qe, qm, pat, msk = _mirror_case("random", 64)
+    rng = np.random.default_rng(3)
+    qe = torch.from_numpy(rng.integers(-128, 128, qe.shape, dtype=np.int8))
+    qm = torch.from_numpy(rng.integers(-128, 128, qm.shape, dtype=np.int8))
+    assert torch.equal(_mirror_int8(qe, qm, pat, msk), bp.pk_dot_reference(qe, qm, pat, msk))
+    good = _mirror_case("random", 64)[:2]
+    assert bool(bp.bit_valued(*good))
+    for bad in ((qe, qm), (good[0], 2 * good[1]), (-good[0].abs(), good[1] - 1),
+                (good[0], 1 - good[1]), (good[0].clone().fill_(-128), good[1])):
+        assert not bool(bp.bit_valued(*bad))
+
+
+def test_pk_dot_operand_layout():
+    """pk_dot_operand element by element: byte j of row p holds, at bit b,
+    qm(p) at K = b * 1600 + j, byte j of row 32 + p whether qe(p) is -1 there;
+    the 32 bytes past 1600 are zero."""
+    qe, qm = _mirror_case("planted", 300)[:2]
+    got = bp.pk_dot_operand(qe, qm).numpy()
+    assert got.shape == (64, bp.Q_ROW) and not got[:, BITS_BYTES:].any()
+    row, j, b = np.indices((64, BITS_BYTES, 8), sparse=True)
+    src = np.where(row < 32, qm.numpy()[row % 32, b * BITS_BYTES + j],
+                   qe.numpy()[row % 32, b * BITS_BYTES + j] == -1)
+    np.testing.assert_array_equal((got[:, :BITS_BYTES, None] >> np.arange(8)) & 1, src)
+
+
+def test_pk_dot_int8_operand_layout():
+    """The runner's int8_operand element by element: [jj, b, A, row group, half, row,
+    byte] holds row 8 * group + row of A1 or A2 at K = b * 1600 + jj * 32 +
+    16 * half + byte, where row 16w + g is qe(8w + g), row 16w + 8 + g is
+    qm(8w + g) in A1 and 0 in A2."""
+    rng = np.random.default_rng(11)
+    qe = rng.integers(-128, 128, (32, BITS), dtype=np.int8)
+    qm = rng.integers(-128, 128, (32, BITS), dtype=np.int8)
+    got = _variants().int8_operand(torch.from_numpy(qe), torch.from_numpy(qm)).numpy()
+    assert got.shape == (50, 8, 2, 8, 2, 8, 16)
+    jj, b, which, grp, half, r, byte = np.indices(got.shape, sparse=True)
+    row = 8 * grp + r
+    w, den_row, g = row // 16, (row // 8) % 2, row % 8
+    k = b * 1600 + jj * 32 + 16 * half + byte
+    want = np.where(den_row == 1, np.where(which == 0, qm[8 * w + g, k], 0), qe[8 * w + g, k])
+    np.testing.assert_array_equal(got, want)
+
+
+def test_b1_accumulators_hold_the_four_products():
+    """mma.sync m16n8k256's int32 accumulator gives lane 4g + t the rows g,
+    g + 8 and columns 2t, 2t + 1 of a 16 x 8 tile. In pk_dot's kernel
+    m-tile mt's row g is operand row 8 mt + g (mask bits of position 8 mt +
+    g) and row g + 8 operand row 32 + 8 mt + g (its pattern-and-mask bits);
+    B column c is entry c // 2 of the n-tile, mask bits for even c and
+    pattern-and-mask bits for odd c. So lane 4g + t holds den, mq . pmd,
+    pmq . md and pmq . pmd of one (position, entry), and the 32 lanes of the
+    4 m-tiles hold each (position, entry of the n-tile) once."""
+    seen = {}
+    for mt in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            regs = [(g, 2 * t), (g, 2 * t + 1), (g + 8, 2 * t), (g + 8, 2 * t + 1)]
+            a_rows = [8 * mt + r if r < 8 else 32 + 8 * mt + r - 8 for r, _ in regs]
+            kinds = [(row // 32, c % 2) for row, (_, c) in zip(a_rows, regs)]
+            assert kinds == [(0, 0), (0, 1), (1, 0), (1, 1)]  # mq.md, mq.pmd, pmq.md, pmq.pmd
+            assert {row % 32 for row in a_rows} == {8 * mt + g}
+            assert {c // 2 for _, c in regs} == {t}
+            seen.setdefault(8 * mt + g, set()).add(t)
+    assert sorted(seen) == list(range(32)) and all(v == {0, 1, 2, 3} for v in seen.values())
+
+
+def test_int8_accumulator_rows_hold_dot_and_den():
+    """wgmma's m64nN int32 accumulator gives thread (warp w, lane 4g + t) the
+    rows 16w + g (registers 4c + x) and 16w + g + 8 (registers 4c + 2 + x),
+    at entries 8c + 2t + x. With qe(p) = p + 1 and qm(p) = -(p + 1), the first
+    row of every thread is A1's qe(8w + g) and the second its qm(8w + g), A2
+    repeating the first and zero in the second: each thread holds dot and
+    den of one position, and the 128 threads hold each position's entries
+    once."""
+    p = torch.arange(32, dtype=torch.int8).view(32, 1).expand(32, BITS)
+    a1, a2 = _variants().dot_den_rows(p + 1, -(p + 1))
+    seen = {}
+    for w in range(4):
+        for lane in range(32):
+            g, t = lane // 4, lane % 4
+            rows = [16 * w + g + 8 * ((i // 2) % 2) for i in range(128)]
+            cols = [8 * (i // 4) + 2 * t + i % 2 for i in range(128)]
+            pos = 8 * w + g
+            for i, (r, c) in enumerate(zip(rows, cols)):
+                h = (i // 2) % 2
+                if h == 0:  # dot(pos): qe in both operands
+                    assert int(a1[r, 0]) == int(a2[r, 0]) == pos + 1
+                else:       # den(pos): qm against the mask bits alone
+                    assert int(a1[r, 0]) == -(pos + 1) and not a2[r].any()
+                seen.setdefault((pos, h), set()).add(c)
+    assert sorted(seen) == [(q, h) for q in range(32) for h in (0, 1)]
+    assert all(cols == set(range(256)) for cols in seen.values())
 
 
 def test_pk_wrappers_cpu_contract():

@@ -465,6 +465,50 @@ def test_b1_packed_kernels(cuda, n):
     assert win[:, 0].tolist()[::2] == [0, 17] and torch.equal(tb1.pk_dot_winner(packed), win)
 
 
+# pk_dot's tile edges (256 and 512 entries, one TMA box of 256 rows), a few
+# tiles and more than one wave of the persistent grid, with an all-masked
+# entry (den = 0) and an all-set one.
+# The plain version runs on the DB padded to a multiple of 8 entries
+# (torch._int_mm on the card).
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 511, 1500, 65_537])
+def test_pk_dot_kernel_edges(cuda, n):
+    rng = np.random.default_rng(n + 1)
+    pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk[0] = 0
+    pat[-1] = msk[-1] = 255
+    qp, qm = (torch.from_numpy(rng.integers(0, 256, (1, 1600), dtype=np.uint8)).to(cuda)
+              for _ in range(2))
+    qe, qmk = tb1.prep_query(qp, qm)
+    pat, msk = torch.from_numpy(pat).to(cuda), torch.from_numpy(msk).to(cuda)
+    pad = -n % 8
+    want = tb1.pk_dot_reference(qe, qmk, torch.nn.functional.pad(pat, (0, 0, 0, pad)),
+                                torch.nn.functional.pad(msk, (0, 0, 0, pad)))[:, :n]
+    before = tb1.pk_dot.launches
+    got = tb1.pk_dot(qe, qmk, pat, msk)
+    torch.cuda.synchronize()
+    assert tb1.pk_dot.launches == before + 1
+    assert torch.equal(got, want)
+    if n > 1:
+        assert int((got[:, 0] >> 16).max()) == 0 and int((got[:31, -1] >> 16).min()) > 0
+
+
+def test_pk_dot_refuses_other_queries(cuda):
+    """pk_dot raises on a query that is not bit-valued (after its launch,
+    which the counter shows), and takes the same DB with prep_query's pair."""
+    rng = np.random.default_rng(3)
+    pat, msk = (torch.from_numpy(rng.integers(0, 256, (256, 1600), dtype=np.uint8)).to(cuda)
+                for _ in range(2))
+    qe = torch.from_numpy(rng.integers(-3, 4, (32, 12_800), dtype=np.int8)).to(cuda)
+    qm = torch.from_numpy(rng.integers(0, 2, (32, 12_800), dtype=np.int8)).to(cuda)
+    before = tb1.pk_dot.launches
+    with pytest.raises(ValueError):
+        tb1.pk_dot(qe, qm, pat, msk)
+    assert tb1.pk_dot.launches == before + 1
+    qe, qm = tb1.prep_query(pat[:1], msk[:1])
+    assert torch.equal(tb1.pk_dot(qe, qm, pat, msk), tb1.pk_dot_reference(qe, qm, pat, msk))
+
+
 # The probes' tile rules (8 queries a tile, 2,048 columns), random inputs in
 # their range, the tie case (at tile_n 2,048 and 128; its f32 disagreement
 # pair and congruent duplicates) and, for the int16 tree, a wrap.

@@ -351,12 +351,15 @@ def test_probe_runner_cpu_rehearsal(tmp_path):
 
 @pytest.mark.parametrize("script,argv", [
     ("probe_kernels_old_vs_new_torch.py", ["--old", "build/parent/mpc_iris_tpu_torch/csrc"]),
+    ("probe_kernels_old_vs_new_torch.py", ["--old", "build/parent/mpc_iris_tpu_torch/csrc",
+                                           "--kernels", "pk_dot"]),
     ("keyed_serial_variants_torch.py", []),
+    ("b1_packed_variants_torch.py", []),
 ])
 def test_card_scripts_refuse_the_cpu(script, argv):
-    """The old-against-new and serial-variant scripts import without jax and
-    refuse to run without a card (they time nothing on the CPU); the
-    source lines the variant script patches are where it expects them."""
+    """The old-against-new and variant scripts import without jax and refuse
+    to run without a card (they time nothing on the CPU); the source lines
+    the serial-variant script patches are where it expects them."""
     proc = subprocess.run([sys.executable, os.path.join(REPO, "scripts", script), *argv],
                           capture_output=True, text=True, timeout=120, cwd=REPO,
                           env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
