@@ -40,17 +40,20 @@ NVIDIA GPU, at full size, and check them.
 - drives the B = 1 packed-dot probe kernels and the select compare probes
   (``b1_select_probe_phase``; scripts/b1_kernel_probe_torch.py,
   select_variants_torch.py, select_i16_probe_torch.py): ``pk_dot`` (with
-  its epilogue; csrc/b1_packed.cu's binary kernel, the four AND-popcount
-  products on ``mma.sync`` b1) and ``pk_select`` (kernel (b)'s
-  csrc/packed_match.cu with one query) over the 1,048,576-entry packed DB at
-  B = 1, pk_select's winner equal to kernel (b) and the unfused scan,
-  pk_dot's of the same index and fraction, both outputs bit-equal to their
-  plain versions over the whole DB; ``select_variant`` with the compares
+  its epilogue) and ``pk_select`` (the exact selection fused in; the
+  kernel match_packed_small_b launches for a group of one query), the two
+  binary kernels of csrc/b1_packed.cu (four AND-popcount products on
+  ``mma.sync`` b1, one tile loop), over the 1,048,576-entry packed DB at
+  B = 1, pk_select's winner equal to its plain version, the unfused scan and
+  the int8 kernel at a group of 2 with one query, pk_dot's of the same index
+  and fraction, both outputs bit-equal to their plain versions over the
+  whole DB; ``select_variant`` with the compares
   i32, f32 and f32_exact at [4,096, 32,768] int32 and ``select_lanes``
   with the int32 and int16 trees at [8,192, 32,768] int16
   (csrc/select_probes.cu), each bit-equal to its plain version there, on a
   tie-heavy block (tile_n 2,048 and 128) and an int16 wrap, f32 keeping the
-  pair that int32 resolves; the times beside (b) at B = 1 and (a);
+  pair that int32 resolves; the times beside the int8 kernel at one query
+  and (a);
 - drives the streaming, morph and bisect probe kernels
   (``stream_probe_phase``; scripts/dma_probe_torch.py, morph_probe_torch.py,
   select_bisect_torch.py; csrc/stream_probes.cu): every variant of the
@@ -191,6 +194,7 @@ from mpc_iris_tpu_torch.models.engines import (
 )
 from mpc_iris_tpu_torch.ops import _build, stream_probes
 from mpc_iris_tpu_torch.ops.b1_packed import (
+    Q_ROW,
     pk_dot,
     pk_dot_reference,
     pk_dot_winner,
@@ -224,6 +228,7 @@ from mpc_iris_tpu_torch.ops.packed_match import (
     _launch_plan,
     fractions_packed_small_b,
     fractions_packed_small_b_reference,
+    match_packed_int8_pairs,
     match_packed_small_b,
     match_packed_small_b_reference,
 )
@@ -423,10 +428,16 @@ def packed_rate(b: int, n: int, ms: float) -> str:
 
 
 def query_l2_bytes(lib, b: int, n: int) -> int:
-    """Bytes of query slabs the packed kernels read from L2 for a batch of b:
-    every block reads its group's 400 slabs of 2 x (32 x group) x 32 bytes."""
+    """Bytes of query the packed match kernels read from L2 for a batch of b:
+    an int8 kernel's block reads its group's 400 slabs of 2 x (32 x group) x
+    32 bytes; the binary kernel of a group of one reads its 64 x 1,632-byte
+    operand once a block (one block an SM, at most one a tile)."""
     total = 0
     for _, nq, qg in _launch_plan(b):
+        if qg == 1:
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            total += min(-(-n // lib.pk_tile_entries()), sms) * 64 * Q_ROW
+            continue
         n_tiles = -(-n // lib.packed_tile_entries(qg))
         total += -(-nq // qg) * n_tiles * 400 * 2 * 32 * qg * 32
     return total
@@ -690,15 +701,18 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
     and ``pk_select`` over the whole packed DB viewed as [N, 1600] at B = 1;
     ``select_variant`` with each compare at S1_SHAPE and ``select_lanes``
     with each tree at S2_SHAPE, their inputs made on the card from the seed.
-    Then: pk_select's winner equals kernel (b) at B = 1 and the unfused scan,
-    pk_dot's has pk_select's index and exact fraction; both kernels' outputs
-    of the counted run equal their plain versions over the whole DB (the
-    plain versions unpack it in pieces); every select probe
+    Then: pk_select's winner (the kernel match_packed_small_b now launches
+    for a group of one query) equals three references, its plain version,
+    the unfused scan and the int8 match kernel at a group of 2 with one query
+    (``match_packed_int8_pairs``); pk_dot's has pk_select's index and exact
+    fraction; both kernels' outputs of the counted run equal their plain
+    versions over the whole DB (the plain versions unpack it in pieces);
+    every select probe
     equals its plain version at its shape, on a tie-heavy block at tile_n
     2,048 and 128 (s1) and with an int16 wrap (s2), and f32 keeps the
     first of the pair that int32 resolves; then the times, p1 and p2 beside
-    (b) at B = 1, s1 and s2 beside (a) on s1's inputs. Returns the seven
-    kernels' entries of the kernels line."""
+    the int8 kernel at one query, s1 and s2 beside (a) on s1's inputs.
+    Returns the seven kernels' entries of the kernels line."""
     t_phase = time.perf_counter()
     pat, msk = packed.db_pat.reshape(-1, BITS_BYTES), packed.db_msk.reshape(-1, BITS_BYTES)
     n = pat.shape[0]
@@ -725,16 +739,17 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
           "every b1 and select probe kernel launched on its path")
 
     # ---- correctness
-    want = match_packed_small_b(q_enc, q_mask, packed.db_pat, packed.db_msk)
-    check(torch.equal(p2, want), f"pk_select N={n}: winner {p2.ravel().tolist()} equals "
-          f"kernel (b) at B=1 {want.ravel().tolist()}")
+    int8_one = match_packed_int8_pairs(q_enc, q_mask, packed.db_pat, packed.db_msk)
+    check(torch.equal(p2, int8_one), f"pk_select N={n}: winner {p2.ravel().tolist()} equals "
+          f"the int8 kernel at qg=2, nq=1 {int8_one.ravel().tolist()}")
     check(torch.equal(p2, _match_scan_packed(q_enc, q_mask, packed.db_pat, packed.db_msk,
                                              fused=False)), "pk_select: equals the unfused scan")
     (n1, d1, i1), (n2, d2, i2) = p1.ravel().tolist(), p2.ravel().tolist()
     check(i1 == i2 and n1 * d2 == n2 * d1 and d1 > 0,
           f"pk_dot N={n}: winner {p1.ravel().tolist()} has pk_select's index and fraction")
-    print(f"pk_select N={n} B=1: winner {p2.ravel().tolist()} equals kernel (b) and the "
-          f"unfused scan; pk_dot's {p1.ravel().tolist()} the same index and fraction "
+    print(f"pk_select N={n} B=1: winner {p2.ravel().tolist()} equals the int8 kernel at a "
+          f"group of 2 with one query and the unfused scan; pk_dot's {p1.ravel().tolist()} "
+          f"the same index and fraction "
           f"(pairs {'equal' if (n1, d1) == (n2, d2) else 'differ: a rotation tie'})")
     err = {}
     err["pk_dot"] = int((p1_packed.long() - pk_dot_reference(qe, qmk, pat, msk).long())
@@ -777,8 +792,8 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
           f"{torch.equal(s2['i32'], s2['i16'])}")
 
     # ---- times (CUDA events)
-    b_ms = cuda_ms(lambda: match_packed_small_b(q_enc, q_mask, packed.db_pat, packed.db_msk),
-                   10)
+    b_ms = cuda_ms(lambda: match_packed_int8_pairs(q_enc, q_mask, packed.db_pat,
+                                                   packed.db_msk), 10)
     w_ms = cuda_ms(lambda: pk_dot_winner(pk_dot(qe, qmk, pat, msk)), 5)
     rows = {"pk_dot": (lambda: pk_dot(qe, qmk, pat, msk),
                        lambda: pk_dot_reference(qe, qmk, pat, msk),
@@ -788,7 +803,7 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
             "pk_select": (lambda: pk_select(qe, qmk, pat, msk),
                           lambda: pk_select_reference(qe, qmk, pat, msk),
                           packed_bound(1, n, 12),
-                          "scripts/b1_kernel_probe.py:144", "packed_match.cu")}
+                          "scripts/b1_kernel_probe.py:144", "b1_packed.cu")}
     s1_bytes, s2_bytes = 8 * s1_dot.numel(), 4 * s2_dot.numel()
     for c in COMPARES:
         rows[f"select_variant_{c}"] = (
@@ -809,7 +824,7 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
     for name, (kernel, plain, (b_lo, b_by), replaces, src) in rows.items():
         k_ms = cuda_ms(kernel, 10)
         p_ms = cuda_ms(plain, 1)
-        beside = (f"kernel (b) at B=1 {b_ms:.4f} ms" if name.startswith("pk_")
+        beside = (f"the int8 match kernel at qg=2, nq=1 {b_ms:.4f} ms" if name.startswith("pk_")
                   else f"kernel (a) select_chunk on the same inputs {a_ms:.4f} ms")
         print(f"time kernel {name}: {k_ms:.4f} ms, plain {p_ms:.3f} ms; bound {b_lo:.4f} ms "
               f"({b_by}), {b_lo / k_ms:.1%} of it; {beside} [{card}]")
@@ -2025,8 +2040,8 @@ def main() -> int:
                                        "packed_fractions_kernel", "fold_parts_kernel",
                                        "chacha_planes_kernel", "int8_gemm_kernel",
                                        "keyed_share_dot_kernel", "pk_dot_kernel",
-                                       "tile_select_kernel", "fold_tiles_kernel",
-                                       "stream_kernel")
+                                       "pk_select_kernel", "tile_select_kernel",
+                                       "fold_tiles_kernel", "stream_kernel")
                                if k in line), line)
             config = re.findall(r"L[ib](\d+)E", line)
             if config:  # the template arguments

@@ -1,21 +1,31 @@
-// The B = 1 pk-dot probe kernel over the BIT-PACKED template DB, on the
-// binary tensor cores.
+// The B = 1 kernels over the BIT-PACKED template DB, on the binary tensor
+// cores: pk-dot (the products, packed per position and entry) and pk-select
+// (the products and the exact winner), one tile loop for both.
 //
-// Replaces the TPU kernel scripts/b1_kernel_probe.py::make_pk_dot. It takes
-// the probe's operands as given: the query's int8 encoding and mask
-// [32][12,800], rows in the bit-reversed rotation order (position p holds
-// rotation bitrev5(p); row 31 is the all-zero dummy) and K in the
-// bit-plane-major order (k = bit * 1600 + byte); the DB as uint8 [N][1600]
-// pattern and mask planes. Per (position p, entry e): dot and den, the two
-// int8 products, and num = (den - dot) >> 1; out[p][e] = (den << 16) | num,
-// int32 [32][N] in position order (the probe's epilogue runs outside, in the
-// wrapper's pk_dot_winner). The probe's other kernel, make_pk_select, is
-// kernel (b) at B = 1: its wrapper launches packed_match.cu's kernel.
+// Replaces the TPU kernels scripts/b1_kernel_probe.py::make_pk_dot and
+// make_pk_select; pk-select is also kernel (b) (mpc_iris_tpu/ops/
+// packed_match.py::_pk_select_kernel) for a group of one query: the
+// wrapper of match_packed_small_b launches it for every one-query group.
+// Both take the query as an operand of packed bits (the wrappers'
+// pk_dot_operand and _one_query_operand): 64 rows of 1,600 bytes, row p the
+// mask bits of query row p, row 32 + p its pattern-and-mask bits, packed as
+// the DB is (K in the packed byte order), and the DB as uint8 [N][1600]
+// pattern and mask planes.
+// - pk_dot_kernel: per (position p, entry e) out[p][e] = (den << 16) | num,
+//   int32 [32][N] in position order; rows in the probe's bit-reversed
+//   rotation order (its epilogue runs outside, in the wrapper's
+//   pk_dot_winner).
+// - pk_select_kernel: rows in rotation order (row r rotation r, row 31 the
+//   all-zero dummy: den 0, never valid). Per entry the exact minimum of
+//   num / den over the rows, ties to the lowest row (the earliest
+//   rotation), then the exact argmin over entries, ties to the lowest
+//   index, den = 0 never winning (frac.cuh): int32 [3] = (n, d, idx). It
+//   writes nothing per entry.
 //
-// What bounds it on the H100: the 3,200 bytes of packed DB an entry, 1.00 ms
-// at 1M entries at 3.35 TB/s, and the 128 bytes an entry written (0.04 ms),
-// against 0.87 ms of int8 operations (32 rows x 12,800 x 2 products x 2 ops
-// an entry at 1,979 TOPS). So the function is bound by bytes.
+// What bounds them on the H100: the 3,200 bytes of packed DB an entry, 1.00
+// ms at 1M entries at 3.35 TB/s (pk-dot also writes 128 bytes an entry,
+// 0.04 ms), against 0.87 ms of int8 operations (32 rows x 12,800 x 2
+// products x 2 ops an entry at 1,979 TOPS). So both are bound by bytes.
 //
 // The design is binary. For a bit-valued query (qm = mask bits mq, qe =
 // mq - 2 pmq with pmq its pattern-and-mask bits, as prep_query gives) and the
@@ -26,28 +36,36 @@
 // on an H100, as scripts/b1_packed_variants_torch.py measures it: the 52.4M
 // of 1M entries take 0.34 ms). That runner also times the int8 design that
 // lost to this one (scripts/b1_packed_variants.cu).
-// - A 16-row m-tile holds positions 8 mt + g: the mask bits in row g, the
+// - A 16-row m-tile holds rows 8 mt + g: the mask bits in row g, the
 //   pattern-and-mask bits in row g + 8; an 8-column n-tile holds 4 entries,
 //   column 2i the mask bits of entry i and 2i + 1 its pattern-and-mask bits.
 //   So lane 4g + t's four accumulators are the four products of one
-//   (position, entry), and the epilogue packs (den << 16) | num in
-//   registers. K runs in the packed byte order on both sides (a lane's K
+//   (row, entry). K runs in the packed byte order on both sides (a lane's K
 //   words t and 4 + t are the slab's words 2t and 2t + 1).
-// - The query, 64 rows x 1,600 bytes (the wrapper's pk_dot_operand, rows
-//   padded to 1,632 so a fragment load is two wavefronts), stays in shared
-//   memory; a producer warp brings it once by a bulk copy, then 64 bytes of
-//   every entry of a 256-entry tile a stage by TMA (2-D maps of the
-//   [N][1600] planes, 256-byte L2 promotion; rows past N arrive as zeros)
-//   through a ring of 3 stages. 8 consumer warps take 32 entries each and
-//   the 4 m-tiles, 128 accumulators a thread; a warp loads its A fragments
-//   and B words of a slab, hands the stage back (after fence.proxy.async:
-//   the TMA may refill it at once) and runs 32 mma.sync. Persistent: one
-//   block an SM walks the tiles.
+// - The query, 64 rows x 1,600 bytes (rows padded to 1,632 so a fragment
+//   load is two wavefronts), stays in shared memory; a producer warp brings
+//   it once by a bulk copy, then 64 bytes of every entry of a 256-entry tile
+//   a stage by TMA (2-D maps of the [N][1600] planes, 256-byte L2
+//   promotion; rows past N arrive as zeros) through a ring of 3 stages. 8
+//   consumer warps take 32 entries each and the 4 m-tiles, 128 accumulators
+//   a thread; a warp loads its A fragments and B words of a slab, hands the
+//   stage back (after fence.proxy.async: the TMA may refill it at once) and
+//   runs 32 mma.sync. Persistent: one block an SM walks the tiles.
+// - The epilogues take a tile's accumulators in registers: pk-dot packs
+//   (den << 16) | num and streams it out; pk-select folds each n-tile at
+//   once (its 4 m-tiles in the thread, then the 8 lanes of an entry by xor
+//   shuffles 4, 8, 16, the row as the index) into one running Frac a thread
+//   with the global entry index, and after the block's last tile the 8
+//   consumer warps (a named barrier: the producer warp has returned) leave
+//   one partial a block, which fold_parts_kernel folds (frac.cuh). Every
+//   step is frac_select, a lexicographic minimum over (fraction, index), so
+//   the order of the folds cannot change the winner.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "frac.cuh"
 #include "packed_tile.cuh"
 #include "tensor_map.cuh"
 
@@ -80,7 +98,7 @@ __device__ __forceinline__ uint2 lds64(uint32_t addr) {
   return v;
 }
 
-// ---- the kernel
+// ---- the tile loop
 constexpr int kWarps = 8;                    // consumer warps, 32 entries each
 constexpr int kTile = kWarps * 32;           // entries a tile
 constexpr int kThreads = (kWarps + 1) * 32;  // and one producer warp
@@ -98,14 +116,22 @@ constexpr int kBarOff = kQBytes + kStages * kStage;
 constexpr int kSmem = 1024 + kBarOff + 8 * (2 * kStages + 1);
 static_assert(kSlabs % kSlabsAStage == 0, "stages tile the plane");
 
-// Persistent: block b walks tiles b, b + gridDim.x, ... of kTile entries.
-// q: uint8 [64][kQRow] (pk_dot_operand): row p the query's mask bits of
-// position p, row 32 + p its pattern-and-mask bits, packed as the DB is;
-// out: int32 [32][n_entries].
-__global__ void __launch_bounds__(kThreads, 1)
-pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
-              const __grid_constant__ CUtensorMap msk_map, const uint8_t* __restrict__ q,
-              long long n_entries, int tiles, int* __restrict__ out) {
+// A tile's accumulators in a consumer lane (g, t4): registers 0-3 of
+// acc[nt][mt] are popc(mq & md) = den, popc(mq & pmd), popc(pmq & md),
+// popc(pmq & pmd) of query row 8 mt + g and entry 4 nt + t4 of the warp's 32.
+using Acc = int[kNt][4][4];
+
+__device__ __forceinline__ int acc_num(const int (&d)[4]) { return d[1] + d[2] - 2 * d[3]; }
+
+// The persistent walk of both kernels: block b takes tiles b, b + gridDim.x,
+// ... of kTile entries. The producer warp loads the query once, then the
+// stages, and returns false. Each consumer warp runs the products of its 32
+// entries of every tile and hands each tile's accumulators to
+// epi.tile(acc, t, warp, g, t4); it returns true after its last tile. Every
+// thread of the block must call it, once.
+template <class Epilogue>
+__device__ __forceinline__ bool pk_tiles(const void* pat_tm, const void* msk_tm,
+                                         const uint8_t* q, int tiles, Epilogue& epi) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (tile::smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t stages = base + kQBytes;
@@ -129,8 +155,6 @@ pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
     // ---- producer warp: the query once, then 64 bytes of every entry a
     // stage by TMA
     if (lane == 0) {
-      const void* pat_tm = &pat_map;
-      const void* msk_tm = &msk_map;
       tile::mbar_expect_tx(q_full, kQBytes);
       tile::bulk_copy(base, q, kQBytes, q_full);
       int it = 0;
@@ -146,15 +170,15 @@ pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
         }
       }
     }
-    return;
+    return false;
   }
 
   // ---- consumer warps: 32 entries each, the 4 products of all 32
-  // positions. Lane (g, t4): A rows g (mask bits of position 8 mt + g) and
-  // g + 8 (its pattern-and-mask bits) of m-tile mt; B column g, entry
-  // 4 nt + g / 2 of the warp's, its mask bits (g even) or pattern-and-mask
-  // bits (g odd); the K words of its fragment registers (t4, 4 + t4) are the
-  // slab's words 2 t4 and 2 t4 + 1, the same on both sides.
+  // rows. Lane (g, t4): A rows g (mask bits of row 8 mt + g) and g + 8 (its
+  // pattern-and-mask bits) of m-tile mt; B column g, entry 4 nt + g / 2 of
+  // the warp's, its mask bits (g even) or pattern-and-mask bits (g odd); the
+  // K words of its fragment registers (t4, 4 + t4) are the slab's words 2 t4
+  // and 2 t4 + 1, the same on both sides.
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const uint32_t q_lane = base + g * kQRow + 8 * t4;
@@ -164,7 +188,7 @@ pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
   int it = 0;
 #pragma unroll 1
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    int acc[kNt][4][4];
+    Acc acc;
 #pragma unroll
     for (int nt = 0; nt < kNt; ++nt)
 #pragma unroll
@@ -212,9 +236,17 @@ pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
           for (int mt = 0; mt < 4; ++mt) mma_b1_and(acc[nt][mt], a[mt], b[nt]);
       }
     }
-    // registers 0-3: popc(mq & md) = den, popc(mq & pmd), popc(pmq & md),
-    // popc(pmq & pmd) of position 8 mt + g and entry 4 nt + t4 of the warp's;
-    // num = (den - dot) >> 1 with dot = den - 2 (x + y) + 4 z
+    epi.tile(acc, t, warp, g, t4);
+  }
+  return true;
+}
+
+// ---- pk-dot: out[p][e] = (den << 16) | num, int32 [32][n_entries]
+struct DotOut {
+  int* out;
+  long long n_entries;
+
+  __device__ __forceinline__ void tile(const Acc& acc, int t, int warp, int g, int t4) const {
     const long long e0 = static_cast<long long>(t) * kTile + 32 * warp + t4;
 #pragma unroll
     for (int nt = 0; nt < kNt; ++nt) {
@@ -222,22 +254,81 @@ pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
       if (e >= n_entries) continue;
 #pragma unroll
       for (int mt = 0; mt < 4; ++mt) {
-        const int* d = acc[nt][mt];
-        const unsigned num = static_cast<unsigned>(d[1] + d[2] - 2 * d[3]);
+        const unsigned num = static_cast<unsigned>(acc_num(acc[nt][mt]));
         __stcs(out + static_cast<size_t>(8 * mt + g) * n_entries + e,
-               static_cast<int>(num | (static_cast<unsigned>(d[0]) << 16)));
+               static_cast<int>(num | (static_cast<unsigned>(acc[nt][mt][0]) << 16)));
       }
     }
   }
+};
+
+// q: uint8 [64][kQRow] (pk_dot_operand), rows in position order.
+__global__ void __launch_bounds__(kThreads, 1)
+pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
+              const __grid_constant__ CUtensorMap msk_map, const uint8_t* __restrict__ q,
+              long long n_entries, int tiles, int* __restrict__ out) {
+  DotOut epi{out, n_entries};
+  pk_tiles(&pat_map, &msk_map, q, tiles, epi);
 }
 
-int launch(const void* q, const void* dp, const void* dm, long long n_entries, void* out,
-           cudaStream_t stream) {
-  CUtensorMap pat_map;
-  CUtensorMap msk_map;
-  if (!tma::make_map_2d(&pat_map, dp, n_entries, tile::kPlane, 32 * kSlabsAStage, kBoxRows,
+// ---- pk-select: the exact winner, one partial a block
+struct SelectBest {
+  long long n_entries;
+  Frac best;  // this lane's running winner over its entries of the block's tiles
+
+  __device__ __forceinline__ void tile(const Acc& acc, int t, int warp, int g, int t4) {
+    const long long e0 = static_cast<long long>(t) * kTile + 32 * warp + t4;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      // entry 4 nt + t4: its rows 8 mt + g in this lane, the row as the index
+      Frac f = frac_pad();
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        f = frac_select(f, Frac{acc_num(acc[nt][mt]), acc[nt][mt][0], 8 * mt + g});
+      }
+      // and its other rows in the lanes 4 g' + t4
+#pragma unroll
+      for (int s = 4; s < 32; s <<= 1) {
+        const Frac o{__shfl_xor_sync(0xffffffffu, f.n, s), __shfl_xor_sync(0xffffffffu, f.d, s),
+                     __shfl_xor_sync(0xffffffffu, f.i, s)};
+        f = frac_select(f, o);
+      }
+      const long long e = e0 + 4 * nt;
+      if (e < n_entries) best = frac_select(best, Frac{f.n, f.d, static_cast<int>(e)});
+    }
+  }
+};
+
+// q: uint8 [64][kQRow], rows in rotation order, row 31 and 63 zero.
+// part: int32 [3][gridDim.x], the (n, d, idx) planes of the blocks' winners.
+__global__ void __launch_bounds__(kThreads, 1)
+pk_select_kernel(const __grid_constant__ CUtensorMap pat_map,
+                 const __grid_constant__ CUtensorMap msk_map, const uint8_t* __restrict__ q,
+                 long long n_entries, int tiles, int* __restrict__ part) {
+  __shared__ Frac warp_best[kWarps];
+  SelectBest epi{n_entries, frac_pad()};
+  if (!pk_tiles(&pat_map, &msk_map, q, tiles, epi)) return;  // the producer warp
+  // the consumer warps alone: a named barrier of their 256 threads
+  const Frac f = warp_select(epi.best);
+  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x / 32] = f;
+  asm volatile("bar.sync 1, %0;" ::"n"(kWarps * 32) : "memory");
+  if (threadIdx.x == 0) {
+    Frac b = frac_pad();
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) b = frac_select(b, warp_best[w]);
+    part[blockIdx.x] = b.n;
+    part[gridDim.x + blockIdx.x] = b.d;
+    part[2 * gridDim.x + blockIdx.x] = b.i;
+  }
+}
+
+// The tensor maps of the DB planes, the persistent grid (one block an SM, at
+// most one a tile) and the kernel's shared memory; returns a cudaError_t.
+int setup(const void* kernel, const void* dp, const void* dm, long long n_entries,
+          CUtensorMap* pat_map, CUtensorMap* msk_map, int* tiles, int* grid) {
+  if (!tma::make_map_2d(pat_map, dp, n_entries, tile::kPlane, 32 * kSlabsAStage, kBoxRows,
                         CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tma::make_map_2d(&msk_map, dm, n_entries, tile::kPlane, 32 * kSlabsAStage, kBoxRows,
+      !tma::make_map_2d(msk_map, dm, n_entries, tile::kPlane, 32 * kSlabsAStage, kBoxRows,
                         CU_TENSOR_MAP_SWIZZLE_NONE)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -248,16 +339,12 @@ int launch(const void* q, const void* dp, const void* dm, long long n_entries, v
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(pk_dot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmem);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long tiles = (n_entries + kTile - 1) / kTile;
-  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  pk_dot_kernel<<<grid, kThreads, kSmem, stream>>>(
-      pat_map, msk_map, static_cast<const uint8_t*>(q), n_entries, static_cast<int>(tiles),
-      static_cast<int*>(out));
-  return static_cast<int>(cudaGetLastError());
+  const long long n_tiles = (n_entries + kTile - 1) / kTile;
+  *tiles = static_cast<int>(n_tiles);
+  *grid = static_cast<int>(n_tiles < sms ? n_tiles : sms);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -269,5 +356,47 @@ int launch(const void* q, const void* dp, const void* dm, long long n_entries, v
 // cuTensorMapEncodeTiled refuses).
 extern "C" int pk_dot_launch(const void* q, const void* dp, const void* dm, long long n_entries,
                              void* out, void* stream) {
-  return mpc_iris::launch(q, dp, dm, n_entries, out, static_cast<cudaStream_t>(stream));
+  using namespace mpc_iris;
+  CUtensorMap pat_map;
+  CUtensorMap msk_map;
+  int tiles = 0;
+  int grid = 0;
+  const int err = setup(reinterpret_cast<const void*>(pk_dot_kernel), dp, dm, n_entries,
+                        &pat_map, &msk_map, &tiles, &grid);
+  if (err != 0) return err;
+  pk_dot_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      pat_map, msk_map, static_cast<const uint8_t*>(q), n_entries, tiles,
+      static_cast<int*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Entries a tile of both kernels: the pk-select scratch `part` holds 3 ints
+// a tile.
+extern "C" int pk_tile_entries() { return mpc_iris::kTile; }
+
+// q: uint8 [64][1,632], rows in rotation order (the wrappers' operands of one
+// query); dp, dm as for pk_dot_launch; part: int32 scratch of 3 *
+// ceil(n_entries / pk_tile_entries()); out: int32 [3] rows of out_stride,
+// the winner (n, d, idx) at column 0. The kernel, then the fold of its
+// partials, on `stream`; returns cudaGetLastError().
+extern "C" int pk_select_launch(const void* q, const void* dp, const void* dm,
+                                long long n_entries, void* part, void* out, int out_stride,
+                                void* stream) {
+  using namespace mpc_iris;
+  auto s = static_cast<cudaStream_t>(stream);
+  CUtensorMap pat_map;
+  CUtensorMap msk_map;
+  int tiles = 0;
+  int grid = 0;
+  const int err = setup(reinterpret_cast<const void*>(pk_select_kernel), dp, dm, n_entries,
+                        &pat_map, &msk_map, &tiles, &grid);
+  if (err != 0) return err;
+  pk_select_kernel<<<grid, kThreads, kSmem, s>>>(pat_map, msk_map,
+                                                 static_cast<const uint8_t*>(q), n_entries,
+                                                 tiles, static_cast<int*>(part));
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return static_cast<int>(launched);
+  fold_parts_kernel<<<1, kFoldThreads, 0, s>>>(static_cast<const int*>(part), grid, 1,
+                                               static_cast<int*>(out), out_stride);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -1,11 +1,16 @@
 // Small-batch match directly over the BIT-PACKED template DB, on the int8
-// tensor cores.
+// tensor cores, for query groups of 2 and 4.
 //
 // Replaces the TPU kernel mpc_iris_tpu/ops/packed_match.py::
 // match_packed_small_b (kernel body _pk_select_kernel). Per query b, the
 // winner (n, d, idx) over the WHOLE DB: for each entry the exact minimum over
 // the 31 rotations of n/d, ties to the earliest rotation; then the exact
 // argmin over entries, ties to the lowest global index. Output int32 [3][B].
+// Groups of one query (B = 1, and a remainder of one, as at B = 5) do not
+// come here: the wrapper launches b1_packed.cu's pk_select_kernel for
+// them, the binary design, which reads the DB once at the memory rate where
+// this kernel at N = 32 ran at a quarter of it. A group of 2 with one zero
+// query runs a single query here too, for comparison.
 //
 // What bounds it on the H100: the two int8 products, 32 x 12,800 x 2 MACs
 // per (query, entry): 0.84 ms per query at 1M entries at 1,979 TOPS, against
@@ -103,19 +108,19 @@ int launch(const void* qt, const void* dp, const void* dm, long long n_entries, 
 }  // namespace
 }  // namespace mpc_iris
 
-// Entries per block for a query group of qg (1, 2 or 4) queries; 0 for
+// Entries per block for a query group of qg (2 or 4) queries; 0 for
 // another qg.
 extern "C" int packed_tile_entries(int qg) {
   using namespace mpc_iris::tile;
   switch (qg) {
-    case 1: return Cfg<1, kMt[1]>::kEntries;
     case 2: return Cfg<2, kMt[2]>::kEntries;
     case 4: return Cfg<4, kMt[4]>::kEntries;
     default: return 0;
   }
 }
 
-// One launch for nq queries in groups of qg: qt int8 [ceil(nq/qg)][400][2]
+// One launch for nq queries in groups of qg (2 or 4; cudaErrorInvalidValue
+// for another qg): qt int8 [ceil(nq/qg)][400][2]
 // [32*qg][32] query slabs; dp, dm uint8 [n_entries][1600], 16-byte aligned;
 // part int32 [3 * nq * n_tiles] scratch (n_tiles = ceil(n_entries /
 // packed_tile_entries(qg))); out: int32 [3] rows of out_stride, the first
@@ -126,8 +131,6 @@ extern "C" int match_packed_small_b_launch(int qg, const void* qt, const void* d
   using namespace mpc_iris;
   auto s = static_cast<cudaStream_t>(stream);
   switch (qg) {
-    case 1:
-      return launch<1, tile::kMt[1]>(qt, dp, dm, n_entries, nq, part, out, out_stride, s);
     case 2:
       return launch<2, tile::kMt[2]>(qt, dp, dm, n_entries, nq, part, out, out_stride, s);
     case 4:

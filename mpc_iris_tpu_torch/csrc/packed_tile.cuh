@@ -1,7 +1,8 @@
 // The per-entry rotation minimum over the BIT-PACKED template DB on Hopper's
 // int8 tensor cores, shared by the packed small-batch kernels: match
-// (packed_match.cu) and the audit spectrum (packed_fractions.cu); its
-// products alone also by the B = 1 pk-dot probe kernel (b1_packed.cu).
+// (packed_match.cu, query groups of 2 and 4) and the audit spectrum
+// (packed_fractions.cu). The binary B = 1 kernels (b1_packed.cu) use only
+// its staging helpers (mbarriers, bulk and TMA copies, reg_fence).
 //
 // Replaces the tile loop of the TPU kernels mpc_iris_tpu/ops/packed_match.py::
 // match_packed_small_b / fractions_packed_small_b (_acc_dots, _unpack_planes):
@@ -38,7 +39,8 @@
 //   B x 32 x 25,600 x N_entries / kEntries bytes of query from L2.
 // - Accumulators: MT x 2 products x N/2 int32 registers a thread (at most 128).
 // Measured on an H100 (PERF.md): 44-47% of the int8 peak at B >= 4 (N = 128),
-// 19% at B = 1 (N = 32). The time follows the number of wgmma instructions;
+// 19% at B = 1 (N = 32: the audit spectrum's groups of one; match's take
+// the binary kernel of b1_packed.cu). The time follows the number of wgmma instructions;
 // staging, unpacking, fences, A from registers or shared memory, the slab
 // layout, the wgmma depth and the operand type (e4m3) do not move it
 // (scripts/packed_tile_variants.py).

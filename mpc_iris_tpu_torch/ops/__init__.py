@@ -14,19 +14,20 @@ audit and MPC paths (counterpart of ``mpc_iris_tpu/ops``).
 - ``scan``: query planes, per-chunk unpack, the chunk scan and the fraction
   spectrum scans; with the plain selection the packed scan is the plain
   packed match, and the packed spectrum scan the plain packed spectrum
-- ``packed_match``: kernels ``match_packed_small_b`` (csrc/packed_match.cu)
-  and ``fractions_packed_small_b`` (csrc/packed_fractions.cu) and their
-  plain versions
+- ``packed_match``: kernels ``match_packed_small_b`` (csrc/packed_match.cu;
+  a group of one query csrc/b1_packed.cu's ``pk_select_kernel``) and
+  ``fractions_packed_small_b`` (csrc/packed_fractions.cu) and their plain
+  versions
 - ``gemm``, ``keyed_dot``: the fused-regen probe kernels ``int8_gemm``
   (csrc/int8_gemm.cu) and ``keyed_share_dots`` (csrc/keyed_share_dot.cu,
   ChaCha20 fused with the share products) and their plain versions; no
   engine calls them (scripts/fused_mm_regen_probe_torch.py measures them)
 - ``b1_packed``, ``select_probes``: the B = 1 packed-dot probe kernels
-  ``pk_dot`` (csrc/b1_packed.cu) and ``pk_select`` (kernel (b) with one
-  query, csrc/packed_match.cu) and the select
+  ``pk_dot`` and ``pk_select`` (csrc/b1_packed.cu; pk_select's kernel is
+  the one match_packed_small_b launches at B = 1) and the select
   compare-arithmetic probe kernels ``select_variant`` and ``select_lanes``
-  (csrc/select_probes.cu) and their plain versions; no engine calls them
-  (scripts/b1_kernel_probe_torch.py, select_variants_torch.py and
+  (csrc/select_probes.cu) and their plain versions; no engine calls the
+  wrappers (scripts/b1_kernel_probe_torch.py, select_variants_torch.py and
   select_i16_probe_torch.py measure them)
 - ``self_test``: the runtime canary of the int8 product, the share dot and
   the engines' kernels

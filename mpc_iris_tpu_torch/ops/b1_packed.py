@@ -1,22 +1,21 @@
 """The B = 1 packed-dot probe kernels over the bit-packed DB (counterpart of
 the kernel functions of ``scripts/b1_kernel_probe.py``).
 
-:func:`pk_dot` launches ``pk_dot_kernel`` (``csrc/b1_packed.cu``) and
-:func:`pk_select` launches kernel (b)'s packed-match kernel
-(``csrc/packed_match.cu``) with a group of one query, for CUDA tensors; for
-CPU tensors each takes its plain version (``*_reference``). Both take the
-probe's operands as given: the query pair of :func:`prep_query`, int8 [32,
-12,800] with the rows in ``ROT_BITREV`` order (position p holds rotation
-bitrev5(p), row 31 the all-zero dummy) and K in the bit-plane-major order of
-:func:`bitplane_perm`; the DB as uint8 [N, 1600] pattern and mask planes.
+:func:`pk_dot` and :func:`pk_select` launch ``pk_dot_kernel`` and
+``pk_select_kernel`` (``csrc/b1_packed.cu``, one binary tile loop: the four
+AND-popcount products of the query's mask and pattern-and-mask bits
+(:func:`pk_dot_operand`) against the DB's, on the ``mma.sync`` b1 tensor
+instruction, no unpack) for CUDA tensors; for CPU tensors each takes its
+plain version (``*_reference``). Both take the probe's operands as given:
+the query pair of :func:`prep_query`, int8 [32, 12,800] with the rows in
+``ROT_BITREV`` order (position p holds rotation bitrev5(p), row 31 the
+all-zero dummy) and K in the bit-plane-major order of :func:`bitplane_perm`;
+the DB as uint8 [N, 1600] pattern and mask planes. Being binary, both take
+only a bit-valued query pair (:func:`bit_valued`), as :func:`prep_query`
+gives, where the probe's kernels take any int8 rows; they raise on another.
 
 - :func:`pk_dot` gives int32 [32, N] = ``(den << 16) | num`` per (position,
-  entry), the probe's ``make_pk_dot`` kernel. Its kernel is binary: the four
-  AND-popcount products of the query's mask and pattern-and-mask bits
-  (:func:`pk_dot_operand`) against the DB's, on the ``mma.sync`` b1 tensor
-  instruction, no unpack. So it takes only a bit-valued query pair
-  (:func:`bit_valued`), as :func:`prep_query` gives, where the probe's
-  kernel takes any int8 rows; it raises on another. Its epilogue is
+  entry), the probe's ``make_pk_dot`` kernel. Its epilogue is
   :func:`pk_dot_winner`, plain torch as the probe's is XLA outside the
   kernel. It reduces the 31 rotation positions in POSITION order, so on
   equal fractions it keeps the lowest position, not the earliest rotation:
@@ -25,13 +24,16 @@ bitrev5(p), row 31 the all-zero dummy) and K in the bit-plane-major order of
   integers may differ.
 - :func:`pk_select` gives int32 [3, 1], the winner (n, d, idx) with ties to
   the earliest rotation and then the lowest index: the probe's
-  ``make_pk_select``, which is kernel (b) at B = 1. Its rows put back in
-  rotation order (``ROT_BITREV`` is an involution), its query operand is
-  exactly (b)'s for one query, so it launches (b)'s kernel on it.
+  ``make_pk_select``, the products with the exact selection fused into the
+  kernel. Its operand takes the rows put back in rotation order
+  (``ROT_BITREV`` is an involution), so the row is the rotation. The same
+  kernel is kernel (b) for a group of one query:
+  ``ops/packed_match.py::match_packed_small_b`` launches it through
+  :func:`launch_select`.
 
 The probe's ``tile_n``, ``vmem_mb`` and ``int4`` change neither function (its
-selection is exact and index-aware past the first level, and ``wgmma`` has
-no int4), so the wrappers take none of them; the runner
+selection is exact and index-aware past the first level, and the b1
+products are exact), so the wrappers take none of them; the runner
 ``scripts/b1_kernel_probe_torch.py`` keeps them as flags.
 """
 
@@ -51,7 +53,7 @@ from mpc_iris_tpu_torch.ops.select import N_ROT_PAD, ROT_BITREV, select_chunk_re
 
 PLANE = BITS_BYTES        # packed bytes an entry and plane: one K slab of 1,600
 _REFERENCE_ENTRIES = 16_384  # DB entries a piece of the plain versions unpack
-Q_ROW = PLANE + 32    # pk_dot's query row pitch (csrc/b1_packed.cu kQRow)
+Q_ROW = PLANE + 32    # the b1 kernels' query row pitch (csrc/b1_packed.cu kQRow)
 
 
 @functools.cache
@@ -135,21 +137,6 @@ def _rot_bitrev_index(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(ROT_BITREV, device=device)
 
 
-def _query_slabs(qe: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
-    """(qe, qm) int8 [32, 12,800] -> int8 [50, 8, 2, 4, 2, 8, 16], kernel
-    (b)'s query operand of one query (``packed_tile.cuh``), which
-    :func:`pk_select` launches: per K-step (byte slab jj,
-    bit-plane b) the encoding and the mask slab of 32 rows x 32 bytes, in
-    the order wgmma reads them from shared memory (8-row groups, the two
-    16-byte K halves, 8 rows, 16 bytes). K is already bit-plane-major, k =
-    b * 1600 + jj * 32 + (0..31); the rows stay in the given order."""
-    def operand(q):
-        x = q.reshape(N_ROT_PAD // 8, 8, 8, PLANE // 32, 2, 16)  # nh, nl, b, jj, kh, kl
-        return x.permute(3, 2, 0, 4, 1, 5)                       # jj, b, nh, kh, nl, kl
-
-    return torch.stack([operand(qe), operand(qm)], dim=2).contiguous()
-
-
 def pack_bitplane_major(bits: torch.Tensor) -> torch.Tensor:
     """0/1 bytes [R, 12,800], K bit-plane-major -> uint8 [R, 1600] packed as
     the DB is: bit b of byte j is K index b * 1600 + j."""
@@ -159,8 +146,8 @@ def pack_bitplane_major(bits: torch.Tensor) -> torch.Tensor:
 
 
 def pk_dot_operand(qe: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
-    """(qe, qm) of :func:`prep_query` -> uint8 [64, Q_ROW], pk_dot's query
-    operand, the layout of its kernel's shared memory: row p the mask
+    """(qe, qm) of :func:`prep_query` -> uint8 [64, Q_ROW], the b1 kernels'
+    query operand, the layout of their shared memory: row p the mask
     bits of position p, row 32 + p its pattern-and-mask bits (qe = -1),
     packed as the DB is, each row padded by 32 zero bytes. It stands for the
     query only where :func:`bit_valued` holds."""
@@ -201,6 +188,33 @@ def _launch_args(name: str, qe, qm, pat, msk):
     return library()
 
 
+def start_query_check(qe: torch.Tensor, qm: torch.Tensor):
+    """Start :func:`bit_valued` on the query pair. On the card its result is
+    copied to pinned host memory on the current stream, ahead of the kernel
+    the caller launches next, with an event after the copy. Returns (flag,
+    event or None) for :func:`require_bit_valued`."""
+    ok = bit_valued(qe, qm)
+    if ok.device.type == "cpu":
+        return ok, None
+    flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+    flag.copy_(ok, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return flag, done
+
+
+def require_bit_valued(name: str, check) -> None:
+    """Wait for a check of :func:`start_query_check` (its event, not the
+    kernels launched after it) and raise ValueError if the query is not
+    bit-valued."""
+    flag, done = check
+    if done is not None:
+        done.synchronize()
+    if not bool(flag):
+        raise ValueError(f"{name}: the query must be bit-valued (qm in {{0, 1}}, qe in "
+                         "{-qm, qm}), as prep_query and prepare_query_planes give")
+
+
 def pk_dot(qe: torch.Tensor, qm: torch.Tensor, pat: torch.Tensor,
            msk: torch.Tensor) -> torch.Tensor:
     """The probe's pk-dot kernel: int32 [32, N] = (den << 16) | num per
@@ -215,45 +229,51 @@ def pk_dot(qe: torch.Tensor, qm: torch.Tensor, pat: torch.Tensor,
     out = torch.empty((N_ROT_PAD, pat.shape[0]), dtype=torch.int32, device=qe.device)
     with torch.cuda.device(qe.device):
         q = pk_dot_operand(qe, qm)
-        valid = torch.empty((), dtype=torch.bool, pin_memory=True)
-        valid.copy_(bit_valued(qe, qm), non_blocking=True)
-        checked = torch.cuda.Event()
-        checked.record()
+        check = start_query_check(qe, qm)
         stream = torch.cuda.current_stream().cuda_stream
         check_launch("pk_dot", lib.pk_dot_launch(q.data_ptr(), pat.data_ptr(), msk.data_ptr(),
                                                  pat.shape[0], out.data_ptr(), stream))
     pk_dot.launches += 1
-    checked.synchronize()
-    if not bool(valid):
-        raise ValueError("pk_dot: the query must be bit-valued (qm in {0, 1}, qe in {-qm, qm}), "
-                         "as prep_query gives")
+    require_bit_valued("pk_dot", check)
     return out
 
 
 pk_dot.launches = 0
 
 
+def launch_select(name: str, lib, q: torch.Tensor, pat: torch.Tensor, msk: torch.Tensor,
+                  n_entries: int, out: torch.Tensor, out_stride: int) -> None:
+    """One launch of ``pk_select_kernel`` and its fold on the current stream:
+    q uint8 [64, Q_ROW], a bit-valued query's operand with the rows in
+    rotation order (rows 31 and 63 zero); pat, msk the DB planes, n_entries
+    rows of 1600 bytes, checked by the caller; the winner n, d, idx into
+    ``out``'s first element and the elements ``out_stride`` and 2 *
+    ``out_stride`` int32s after it. Raises if the launch fails."""
+    part = torch.empty(3 * -(-n_entries // lib.pk_tile_entries()), dtype=torch.int32,
+                       device=q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    check_launch(name, lib.pk_select_launch(q.data_ptr(), pat.data_ptr(), msk.data_ptr(),
+                                            n_entries, part.data_ptr(), out.data_ptr(),
+                                            out_stride, stream))
+
+
 def pk_select(qe: torch.Tensor, qm: torch.Tensor, pat: torch.Tensor,
               msk: torch.Tensor) -> torch.Tensor:
     """The probe's pk-select kernel: int32 [3, 1], the exact winner (n, d,
-    idx) over the DB; for CUDA tensors one launch (and its fold) of kernel
-    (b)'s packed-match kernel with a group of one query, on the rows put
-    back in rotation order."""
+    idx) over the DB; for CUDA tensors one launch (and its fold) of
+    ``pk_select_kernel`` on the rows put back in rotation order. The query
+    must be :func:`bit_valued`, checked as :func:`pk_dot` checks it."""
     lib = _launch_args("pk_select", qe, qm, pat, msk)
     if lib is None:
         return pk_select_reference(qe, qm, pat, msk)
-    n = pat.shape[0]
-    part = torch.empty(3 * -(-n // lib.packed_tile_entries(1)), dtype=torch.int32,
-                       device=qe.device)
     out = torch.empty((3, 1), dtype=torch.int32, device=qe.device)
-    rev = _rot_bitrev_index(qe.device)
-    qt = _query_slabs(qe[rev], qm[rev])
     with torch.cuda.device(qe.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        check_launch("pk_select", lib.match_packed_small_b_launch(
-            1, qt.data_ptr(), pat.data_ptr(), msk.data_ptr(), n, 1, part.data_ptr(),
-            out.data_ptr(), 1, stream))
+        rev = _rot_bitrev_index(qe.device)
+        q = pk_dot_operand(qe[rev], qm[rev])
+        check = start_query_check(qe, qm)
+        launch_select("pk_select", lib, q, pat, msk, pat.shape[0], out, 1)
     pk_select.launches += 1
+    require_bit_valued("pk_select", check)
     return out
 
 

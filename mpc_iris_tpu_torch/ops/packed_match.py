@@ -1,15 +1,24 @@
 """Small-batch match and audit spectrum directly over the bit-packed DB
 (counterpart of ``mpc_iris_tpu/ops/packed_match.py``).
 
-:func:`match_packed_small_b` launches the CUDA kernel
-``csrc/packed_match.cu`` and :func:`fractions_packed_small_b` the kernel
-``csrc/packed_fractions.cu`` for CUDA tensors; for CPU tensors each takes its
-plain version (``*_reference``), a packed scan of ops/scan.py. The kernels
-never unpack the DB to memory: they run the reference's two int8 products on
-the tensor cores (wgmma), with the DB operand unpacked in registers from the
-packed words, one bit-plane per K-step of the bit-plane-major K order
-(``csrc/packed_tile.cuh``). The query is laid out once per call by
-:func:`_query_tiles` in the order the kernels read it.
+:func:`match_packed_small_b` and :func:`fractions_packed_small_b` launch CUDA
+kernels for CUDA tensors; for CPU tensors each takes its plain version
+(``*_reference``), a packed scan of ops/scan.py. The kernels never unpack the
+DB to memory. Per group of :func:`_launch_plan`:
+
+- groups of 2 and 4 queries, and every group of the audit spectrum, run the
+  reference's two int8 products on the tensor cores (wgmma,
+  ``csrc/packed_match.cu``, ``csrc/packed_fractions.cu``), with the DB
+  operand unpacked in registers from the packed words, one bit-plane per
+  K-step of the bit-plane-major K order (``csrc/packed_tile.cuh``); the query
+  is laid out per call by :func:`_query_tiles` in the order they read it;
+- a match group of one query (B = 1, and a remainder of one, as at B = 5)
+  takes ``csrc/b1_packed.cu``'s ``pk_select_kernel``: four AND-popcount
+  products of packed bits on the binary tensor cores and the exact
+  selection fused, the query as the packed operand of
+  :func:`_one_query_operand`. It is exact only for a bit-valued query
+  (q_mask in {0, 1}, q_enc in {-q_mask, q_mask}, as
+  ``prepare_query_planes`` gives); the call checks that and raises.
 """
 
 from __future__ import annotations
@@ -21,6 +30,13 @@ import torch
 
 from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES, N_ROTATIONS
 from mpc_iris_tpu_torch.ops._build import check_launch, library
+from mpc_iris_tpu_torch.ops.b1_packed import (
+    Q_ROW,
+    launch_select,
+    require_bit_valued,
+    start_query_check,
+)
+from mpc_iris_tpu_torch.ops.encode import pack_bits
 from mpc_iris_tpu_torch.ops.scan import (
     _fractions_scan_packed,
     _match_scan_packed,
@@ -69,7 +85,8 @@ def _bitplane_index(device: torch.device) -> torch.Tensor:
 def _launch_plan(b: int) -> list[tuple[int, int, int]]:
     """The kernel launches for a batch of ``b``: (first query, queries, group
     size). Groups of 4 queries (N = 128 rotation rows); a remainder of 1 or 2
-    gets its own group size, one of 3 a group of 4 with a zero query."""
+    gets its own group size, one of 3 a group of 4 with a zero query. A match
+    group of 1 takes the binary kernel (module docstring)."""
     plan = [(0, b - b % 4, 4)] if b >= 4 else []
     r = b % 4
     if r:
@@ -101,6 +118,21 @@ def _query_tiles(q_enc: torch.Tensor, q_mask: torch.Tensor, qg: int) -> torch.Te
         return x.permute(0, 4, 3, 1, 5, 2, 6)                     # g, jj, bit, nh, kh, nl, kl
 
     return torch.stack([operand(q_enc), operand(q_mask)], dim=3).contiguous()
+
+
+def _one_query_operand(q_enc: torch.Tensor, q_mask: torch.Tensor) -> torch.Tensor:
+    """int8 [1, 31, K] prepared query planes (natural K order) -> uint8 [64,
+    Q_ROW], ``pk_select_kernel``'s query operand with the rows in rotation
+    order: row r the mask bits of rotation r, row 32 + r its
+    pattern-and-mask bits (q_enc = -1), rows 31 and 63 zero (the dummy:
+    den 0, never valid), each packed LSB-first as the DB is (``pack_bits``:
+    bit b of byte j is K index 8 j + b) and padded with zeros to Q_ROW bytes.
+    It stands for the query only where it is bit-valued."""
+    bits = q_mask.new_zeros((2, N_ROT_PAD, BITS))
+    bits[0, :N_ROTATIONS] = q_mask[0]
+    bits[1, :N_ROTATIONS] = q_enc[0] < 0
+    packed = pack_bits(bits.view(2 * N_ROT_PAD, BITS))
+    return torch.nn.functional.pad(packed, (0, Q_ROW - BITS_BYTES))
 
 
 def _launch_args(name: str, q_enc, q_mask, db_pat, db_msk):
@@ -148,6 +180,11 @@ def match_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     Returns int32 [3, B]: (numerator, denominator, global DB index) of each
     query's exact rational argmin over the whole DB, ties to the earliest
     rotation and then the lowest index.
+
+    A group of one query launches the binary kernel, which needs a
+    bit-valued query: its check is copied out ahead of the kernel and read
+    after the launches, so such a call waits for the check (not for the
+    kernels) and raises ValueError on a query that fails it.
     """
     launch = _launch_args("match_packed_small_b", q_enc, q_mask, db_pat, db_msk)
     if launch is None:
@@ -155,20 +192,59 @@ def match_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     lib, n_entries = launch
     b = q_enc.shape[0]
     out = torch.empty((3, b), dtype=torch.int32, device=q_enc.device)
+    checks = []
     with torch.cuda.device(q_enc.device):
-        stream = torch.cuda.current_stream().cuda_stream
         for q0, nq, qg in _launch_plan(b):
-            qt = _query_tiles(q_enc[q0:q0 + nq], q_mask[q0:q0 + nq], qg)
-            n_tiles = -(-n_entries // lib.packed_tile_entries(qg))
-            part = torch.empty(3 * nq * n_tiles, dtype=torch.int32, device=q_enc.device)
-            check_launch("match_packed_small_b", lib.match_packed_small_b_launch(
-                qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
-                part.data_ptr(), out[:, q0:].data_ptr(), b, stream))
+            qe, qm = q_enc[q0:q0 + nq], q_mask[q0:q0 + nq]
+            if qg == 1:
+                q = _one_query_operand(qe, qm)
+                checks.append(start_query_check(qe, qm))
+                launch_select("match_packed_small_b", lib, q, db_pat, db_msk, n_entries,
+                              out[:, q0:], b)
+            else:
+                _launch_int8_group(lib, qe, qm, db_pat, db_msk, n_entries, qg, out[:, q0:], b)
             match_packed_small_b.launches += 1
+    for check in checks:
+        require_bit_valued("match_packed_small_b", check)
     return out
 
 
 match_packed_small_b.launches = 0
+
+
+def _launch_int8_group(lib, q_enc, q_mask, db_pat, db_msk, n_entries: int, qg: int,
+                       out: torch.Tensor, out_stride: int) -> None:
+    """One launch (and its fold) of the int8 match kernel
+    (``csrc/packed_match.cu``) on the current stream for the queries in
+    groups of ``qg`` (2 or 4; the last group padded by zero queries), the
+    winners into ``out``'s first columns, rows ``out_stride`` apart."""
+    nq = q_enc.shape[0]
+    qt = _query_tiles(q_enc, q_mask, qg)
+    n_tiles = -(-n_entries // lib.packed_tile_entries(qg))
+    part = torch.empty(3 * nq * n_tiles, dtype=torch.int32, device=q_enc.device)
+    check_launch("match_packed_small_b", lib.match_packed_small_b_launch(
+        qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
+        part.data_ptr(), out.data_ptr(), out_stride, torch.cuda.current_stream().cuda_stream))
+
+
+def match_packed_int8_pairs(q_enc: torch.Tensor, q_mask: torch.Tensor,
+                            db_pat: torch.Tensor, db_msk: torch.Tensor) -> torch.Tensor:
+    """Every query through the int8 match kernel in groups of 2, the last
+    padded by a zero query: at B = 1 a group of 2 with one query (nq = 1),
+    the int8 design that groups of one query ran before the binary kernel
+    took them. Kept for comparison (chip_smoke.py, tests/test_torch_gpu.py);
+    no request takes it and it counts no launch. Arguments and result as
+    for :func:`match_packed_small_b`, and its plain version for CPU
+    tensors."""
+    launch = _launch_args("match_packed_int8_pairs", q_enc, q_mask, db_pat, db_msk)
+    if launch is None:
+        return match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk)
+    lib, n_entries = launch
+    b = q_enc.shape[0]
+    out = torch.empty((3, b), dtype=torch.int32, device=q_enc.device)
+    with torch.cuda.device(q_enc.device):
+        _launch_int8_group(lib, q_enc, q_mask, db_pat, db_msk, n_entries, 2, out, b)
+    return out
 
 
 def planted_packed_case(rng: np.random.Generator, n: int = 700, b: int = 3):
@@ -244,16 +320,19 @@ def _canary_inputs(device, pat, msk, qpat, qmsk):
 
 
 def check_match_packed_small_b(device) -> None:
-    """Kernel canary: the CUDA kernel equals its plain version, bit for bit,
+    """Kernel canary: both CUDA kernels (B = 3, a group of 4 with a zero
+    query; B = 1, the binary kernel) equal the plain version, bit for bit,
     on planted ties, a ragged tile edge and a padded tail chunk."""
     rng = np.random.default_rng(0xB17)
     pat, msk, qpat, qmsk = planted_packed_case(rng)  # 700 entries
     q_enc, q_mask, db_pat, db_msk = _canary_inputs(device, pat, msk, qpat, qmsk)
-    got = match_packed_small_b(q_enc, q_mask, db_pat, db_msk).cpu()
-    want = match_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk).cpu()
-    if not torch.equal(got, want) or int(got[2, 0]) != 129:
-        raise RuntimeError(f"match_packed_small_b kernel self-test FAILED on "
-                           f"{device}: {got.tolist()} != {want.tolist()}")
+    for b in (3, 1):
+        args = (q_enc[:b], q_mask[:b], db_pat, db_msk)
+        got = match_packed_small_b(*args).cpu()
+        want = match_packed_small_b_reference(*args).cpu()
+        if not torch.equal(got, want) or int(got[2, 0]) != 129:
+            raise RuntimeError(f"match_packed_small_b kernel self-test FAILED on "
+                               f"{device} at B={b}: {got.tolist()} != {want.tolist()}")
 
 
 def check_fractions_packed_small_b(device) -> None:

@@ -8,16 +8,18 @@ query of ``prep_query`` (rows bit-reversed, K bit-plane-major):
   pk-dot     ``pk_dot`` (csrc/b1_packed.cu): int32 [32, N] = (den << 16) |
              num, then the plain epilogue ``pk_dot_winner`` selects (ties to
              the lowest row POSITION, as the probe's epilogue)
-  pk-select  ``pk_select``: the selection fused in, one [3, 1] winner; the
-             probe's kernel is kernel (b) at B = 1, so this launches (b)'s
-             kernel (csrc/packed_match.cu) with a group of one query
+  pk-select  ``pk_select`` (csrc/b1_packed.cu, pk_dot's tile loop): the
+             selection fused in, one [3, 1] winner; the probe's kernel is
+             kernel (b) at B = 1, and match_packed_small_b launches the same
+             kernel for a group of one query
 
 ``--check`` holds both on the CPU against the port's unfused packed scan
 (``_match_scan_packed(fused=False)``) at 4,096 entries with a planted
 self-match. On the card (the default) the DB is made on the card from the
-seed; each variant's winner is held against the unfused scan and kernel (b)
-``match_packed_small_b`` at B = 1 (pk-dot by index and exact fraction, since
-its pair may differ on rotation ties), then timed by CUDA events beside (b),
+seed; each variant's winner is held against the unfused scan and kernel
+(b)'s int8 design at one query (``match_packed_int8_pairs``: a group of 2
+with a zero query; pk-dot by index and exact fraction, since its pair may
+differ on rotation ties), then timed by CUDA events beside that design,
 with its bound (the larger of the bytes at 3.35 TB/s and the int8
 operations at 1,979 TOPS) and the card's name and power limit.
 
@@ -55,7 +57,7 @@ from mpc_iris_tpu_torch.ops.b1_packed import (  # noqa: E402
     pk_select,
     prep_query,
 )
-from mpc_iris_tpu_torch.ops.packed_match import match_packed_small_b  # noqa: E402
+from mpc_iris_tpu_torch.ops.packed_match import match_packed_int8_pairs  # noqa: E402
 from mpc_iris_tpu_torch.ops.scan import _match_scan_packed, prepare_query_planes  # noqa: E402
 
 SCAN_CHUNK = 65_536
@@ -147,17 +149,17 @@ def main() -> int:
     want = _match_scan_packed(q_enc, q_mask, pat.reshape(chunks, n // chunks, BITS_BYTES),
                               msk.reshape(chunks, n // chunks, BITS_BYTES), fused=False)
     packed_b = (q_enc, q_mask, pat.reshape(1, n, BITS_BYTES), msk.reshape(1, n, BITS_BYTES))
-    b_win = match_packed_small_b(*packed_b)
+    b_win = match_packed_int8_pairs(*packed_b)
     ok = torch.equal(b_win, want)
-    print(f"kernel (b) match_packed_small_b B=1 == unfused scan: {ok} "
+    print(f"int8 match kernel at qg=2, nq=1 == unfused scan: {ok} "
           f"[winner {want.ravel().tolist()}]")
-    b_ms = cuda_ms(lambda: match_packed_small_b(*packed_b), args.iters)
-    print(f"time kernel (b) match_packed_small_b N={n} B=1: {b_ms:.4f} ms [{name}]")
+    b_ms = cuda_ms(lambda: match_packed_int8_pairs(*packed_b), args.iters)
+    print(f"time int8 match kernel at qg=2, nq=1 N={n}: {b_ms:.4f} ms [{name}]")
     for variant in variants:
         got = run_variant(variant, qe, qm, pat, msk)
         same = same_winner(got, want, exact=variant == "pk-select")
         ok &= same
-        print(f"{variant} winner {got.ravel().tolist()} == unfused scan and kernel (b) "
+        print(f"{variant} winner {got.ravel().tolist()} == unfused scan and the int8 kernel "
               f"{'(exact)' if variant == 'pk-select' else '(index and fraction)'}: {same}")
         t_bound, by = bound_ms(n, variant)
         k_ms = cuda_ms(lambda: run_variant(variant, qe, qm, pat, msk), args.iters)
@@ -167,7 +169,7 @@ def main() -> int:
             line += f" (kernel {d_ms:.4f} ms, epilogue {k_ms - d_ms:.4f})"
             k_ms = d_ms
         print(f"{line}; bound {t_bound:.4f} ms ({by}), {t_bound / k_ms:.1%} of it; "
-              f"(b) {b_ms:.4f} ms [{name}]", flush=True)
+              f"int8 (qg=2, nq=1) {b_ms:.4f} ms [{name}]", flush=True)
     return 0 if ok else 1
 
 

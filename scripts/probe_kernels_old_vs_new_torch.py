@@ -1,24 +1,31 @@
 """Old against new design of the port's redesigned probe kernels, on one
 card in one process: ``int8_gemm`` (csrc/int8_gemm.cu), the serial fused
-keyed kernel (csrc/keyed_share_dot.cu, ``variant="serial"``) and the B = 1
-pk-dot kernel (csrc/b1_packed.cu), each beside its yardstick, and the
-pipelined keyed variant, whose code did not change, re-timed beside them.
-``--kernels`` picks the families (default all three).
+keyed kernel (csrc/keyed_share_dot.cu, ``variant="serial"``), the B = 1
+pk-dot kernel and the B = 1 select kernel (csrc/b1_packed.cu), each beside
+its yardstick, and the pipelined keyed variant, whose code did not change,
+re-timed beside them. ``--kernels`` picks the families (default all four;
+``pk_dot``'s old path takes a tree whose pk-dot ran on kernel (b)'s tile
+loop, before the binary pk-dot: ``--kernels pk_dot`` against 0a389bc or
+earlier, ``--kernels pk_select`` against a tree whose B = 1 match ran the
+int8 kernel, 1324898 or earlier).
 
 The old design is built from a directory holding an earlier commit's
-``mpc_iris_tpu_torch/csrc`` (its int8_gemm.cu, keyed_share_dot.cu and
-b1_packed.cu with the headers they include), unpacked beforehand, for example
+``mpc_iris_tpu_torch/csrc`` (its int8_gemm.cu, keyed_share_dot.cu,
+b1_packed.cu and packed_match.cu with the headers they include), unpacked
+beforehand, for example
 
-    git archive <commit> mpc_iris_tpu_torch/csrc | tar -x -C build/parent
-    python scripts/probe_kernels_old_vs_new_torch.py \\
+    git archive <commit> mpc_iris_tpu_torch | tar -x -C build/parent
+    python scripts/probe_kernels_old_vs_new_torch.py \
         --old build/parent/mpc_iris_tpu_torch/csrc --out build/old_vs_new.json
 
 It is compiled by nvcc (the flags of ``ops/_build.py``) into its own library
 under ``mpc_iris_tpu_torch/build/`` and called through its own C interface
 (``int8_gemm_launch`` with the query laid out by ``wgmma_slabs``,
-``keyed_share_dots_launch``, and the ``pk_dot_launch(qt, dp, dm, n, out,
-stream)`` of the design on kernel (b)'s tile loop, the query laid out by
-``_query_slabs``). The new design is the package's.
+``keyed_share_dots_launch``, the ``pk_dot_launch(qt, dp, dm, n, out,
+stream)`` of a tree whose pk-dot ran on kernel (b)'s tile loop, the query
+laid out by ``_query_slabs``, and for ``pk_select`` kernel (b)'s
+``match_packed_small_b_launch`` with a group of one query, the int8 design
+B = 1 ran before the binary select kernel). The new design is the package's.
 
 Measured, CUDA events, in turns (old, new, new, old; the median of each
 design's two turns): ``int8_gemm`` at [M x 12,800] . [16,384 x 12,800] for
@@ -26,16 +33,23 @@ M = 31, 248, 4,096 (the keyed pass at B = 1, 8 and the scan's products at
 B = 128) beside ``torch._int_mm``; the keyed kernels on a 16,384-row chunk
 at B = 1 and 8 beside kernel (d) alone and kernel (d) + ``dot_share_batch``.
 Each design is timed as its wrapper ran it (the per-call query layout
-included) and as its kernel alone (operands prepared once). pk-dot over
-1,048,576 packed entries at B = 1 (made on the card from the seed, with an
-all-masked and an all-set entry), the same way.
+included) and as its kernel alone (operands prepared once). pk-dot and
+pk-select over 1,048,576 packed entries at B = 1 (made on the card from the
+seed, with an all-masked and an all-set entry), the same way; pk-select
+beside the int8 kernel at a group of 2 with one query
+(``match_packed_int8_pairs``) and pk-dot, with ptxas's registers and spill
+of the binary kernels and the ``BMMA`` count of their SASS; then
+``PlaintextEngine.match`` at packed B = 1 and 5 over 1,048,576 entries and
+the sharded B = 1 request (4 shards on the card), host wall, one
+subprocess per package in turns (old, new, new, old), the old package being
+the ``mpc_iris_tpu_torch`` directory that holds ``--old``.
 Every output is checked bit for bit: old against new, the products
-against ``torch._int_mm``, pk-dot against ``pk_dot_reference``. Then, from
-``cuobjdump -sass`` of the package's library, the instruction mix of
-ChaCha20 in kernel (d) and in the serial kernel's stage loop, by pipe, and
-the bound it gives (a 16-lane integer pipe for the xor, funnel-shift and
-byte-permute instructions: 64 lanes an SM a clock). Prints the card's name,
-power limit and SM clock. Needs a CUDA card.
+against ``torch._int_mm``, pk-dot and pk-select against their plain
+versions. Then, from ``cuobjdump -sass`` of the package's library, the
+instruction mix of ChaCha20 in kernel (d) and in the serial kernel's stage
+loop, by pipe, and the bound it gives (a 16-lane integer pipe for the xor,
+funnel-shift and byte-permute instructions: 64 lanes an SM a clock). Prints
+the card's name, power limit and SM clock. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -60,10 +74,13 @@ if REPO not in sys.path:
 from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES  # noqa: E402
 from mpc_iris_tpu_torch.ops import _build  # noqa: E402
 from mpc_iris_tpu_torch.ops.b1_packed import (  # noqa: E402
-    _query_slabs,
+    ROT_BITREV,
+    launch_select,
     pk_dot,
     pk_dot_operand,
     pk_dot_reference,
+    pk_select,
+    pk_select_reference,
     prep_query,
 )
 from mpc_iris_tpu_torch.ops.chacha import key_tensor, share_planes_kernel  # noqa: E402
@@ -76,10 +93,20 @@ from mpc_iris_tpu_torch.ops.keyed_dot import (  # noqa: E402
     query_slabs,
     serial_shape,
 )
+from mpc_iris_tpu_torch.ops.packed_match import (  # noqa: E402
+    _bitplane_perm,
+    match_packed_int8_pairs,
+)
+from mpc_iris_tpu_torch.ops.select import N_ROT_PAD  # noqa: E402
 
 CHUNK = 16_384
 PK_DB = 1_048_576
-KERNELS = ("gemm", "keyed", "pk_dot")
+KERNELS = ("gemm", "keyed", "pk_dot", "pk_select")
+FILES = {"gemm": "int8_gemm.cu", "keyed": "keyed_share_dot.cu", "pk_dot": "b1_packed.cu",
+         "pk_select": "packed_match.cu"}
+REQUEST_BATCHES = (1, 5)
+REQUEST_REPS = 20
+PK_BOUND_MS = 1.0019  # pk-select's: 3.36 GB of packed DB at 3.35 TB/s (chip_smoke.py)
 PRODUCT_ROWS = (31, 248, 4_096)
 BATCHES = (1, 8)
 REPS = 20
@@ -115,8 +142,7 @@ def in_turns(old, new) -> tuple[float, float]:
 
 
 def build_old(csrc: str, kernels=KERNELS) -> ctypes.CDLL:
-    files = {"gemm": "int8_gemm.cu", "keyed": "keyed_share_dot.cu", "pk_dot": "b1_packed.cu"}
-    names = sorted(files[k] for k in kernels)
+    names = sorted({FILES[k] for k in kernels})
     h = hashlib.sha256()
     for f in sorted(os.listdir(csrc)):
         h.update(f.encode())
@@ -133,7 +159,9 @@ def build_old(csrc: str, kernels=KERNELS) -> ctypes.CDLL:
     p, i, u, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
     signatures = {"int8_gemm_launch": [i, p, p, i, i, i, p, p],
                   "keyed_share_dots_launch": [i, i, i, p, p, p, u, u, i, i, p, p],
-                  "pk_dot_launch": [p, p, p, ll, p, p]}
+                  "pk_dot_launch": [p, p, p, ll, p, p],
+                  "packed_tile_entries": [i],
+                  "match_packed_small_b_launch": [i, p, p, p, ll, i, p, p, i, p]}
     for name, argtypes in signatures.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
@@ -220,6 +248,21 @@ def pk_inputs(n: int, seed: int, dev: torch.device):
     return (*prep_query(qpat, qmsk), pat, msk)
 
 
+def _query_slabs(qe: torch.Tensor, qm: torch.Tensor) -> torch.Tensor:
+    """(qe, qm) int8 [32, 12,800] -> int8 [50, 8, 2, 4, 2, 8, 16], kernel
+    (b)'s query operand of one query (``packed_tile.cuh``): per K-step (byte
+    slab jj, bit-plane b) the encoding and the mask slab of 32 rows x 32
+    bytes, in the order wgmma reads them from shared memory (8-row groups,
+    the two 16-byte K halves, 8 rows, 16 bytes). K is already
+    bit-plane-major, k = b * 1600 + jj * 32 + (0..31); the rows stay in the
+    given order."""
+    def operand(q):
+        x = q.reshape(N_ROT_PAD // 8, 8, 8, BITS_BYTES // 32, 2, 16)  # nh, nl, b, jj, kh, kl
+        return x.permute(3, 2, 0, 4, 1, 5)                           # jj, b, nh, kh, nl, kl
+
+    return torch.stack([operand(qe), operand(qm)], dim=2).contiguous()
+
+
 def old_pk_dot(lib, qe, qm, pat, msk, prepared: bool):
     """The old pk-dot: kernel (b)'s tile loop with one query, its operand
     laid out by ``_query_slabs`` per call (``prepared``: once)."""
@@ -266,6 +309,169 @@ def pk_dot_turns(old, card: str) -> dict:
     print(f"pk_dot N={PK_DB} B=1: old {o_ms:.4f} ms, new {n_ms:.4f} ms (the kernel alone, "
           f"operand prepared once: old {ok_ms:.4f}, new {nk_ms:.4f}); speed-up "
           f"{o_ms / n_ms:.2f}x; bit-equal to pk_dot_reference {equal} [{card}]")
+    return rec
+
+
+def old_pk_select(lib, qe, qm, pat, msk, prepared: bool):
+    """The old pk-select: kernel (b)'s int8 match kernel with a group of one
+    query (qg = 1), its operand the rows put back in rotation order, laid
+    out by ``_query_slabs`` per call (``prepared``: once)."""
+    rev = torch.as_tensor(ROT_BITREV, device=qe.device)
+    fixed = _query_slabs(qe[rev], qm[rev]) if prepared else None
+    n = pat.shape[0]
+    part = torch.empty(3 * -(-n // lib.packed_tile_entries(1)), dtype=torch.int32,
+                       device=qe.device)
+    out = torch.empty((3, 1), dtype=torch.int32, device=qe.device)
+
+    def run():
+        qt = fixed if prepared else _query_slabs(qe[rev], qm[rev])
+        rc = lib.match_packed_small_b_launch(1, qt.data_ptr(), pat.data_ptr(), msk.data_ptr(),
+                                             n, 1, part.data_ptr(), out.data_ptr(), 1,
+                                             torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old pk_select launch failed: {rc}")
+        return out
+    return run
+
+
+def new_pk_select_kernel(qe, qm, pat, msk):
+    """The package's pk-select kernel and its fold alone: its operand laid
+    out once, no query check."""
+    rev = torch.as_tensor(ROT_BITREV, device=qe.device)
+    a = pk_dot_operand(qe[rev], qm[rev])
+    out = torch.empty((3, 1), dtype=torch.int32, device=qe.device)
+    lib = _build.library()
+
+    def run():
+        launch_select("pk_select", lib, a, pat, msk, pat.shape[0], out, 1)
+        return out
+    return run
+
+
+def ptxas_lines(kernel: str) -> list[str]:
+    """ptxas's registers and spill lines for ``kernel`` in csrc/b1_packed.cu,
+    compiled here to an object with the package's flags (``-Xptxas -v``)."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj = _build.BUILD_DIR / f"ptxas_b1_packed_{os.getpid()}.o"
+    try:
+        log = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(_build.CSRC / "b1_packed.cu")], capture_output=True,
+                             text=True, check=True)
+    finally:
+        obj.unlink(missing_ok=True)
+    lines, mine = [], False
+    for line in (log.stdout + log.stderr).splitlines():
+        if "Compiling entry function" in line:
+            mine = kernel in line
+        elif mine and ("registers" in line or "spill" in line):
+            lines.append(line.split("ptxas info    :")[-1].strip())
+    return lines
+
+
+def pk_select_turns(old, card: str) -> dict:
+    """Old against new pk-select over PK_DB entries at B = 1, as the
+    wrappers run them and as kernels alone, each output against
+    pk_select_reference; beside them the int8 kernel at a group of 2 with
+    one query and pk-dot; ptxas's lines and the SASS BMMA count of both b1
+    kernels."""
+    args = pk_inputs(PK_DB, 0, torch.device("cuda"))
+    qe, qm, pat, msk = args
+    want = pk_select_reference(*args)
+    rev = torch.as_tensor(ROT_BITREV, device=qe.device)
+    q_enc, q_mask = qe[rev][:31].unsqueeze(0), qm[rev][:31].unsqueeze(0)
+    # prepare_query_planes's natural K order from prep_query's bit-plane-major
+    inv = torch.empty(BITS, dtype=torch.long, device=qe.device)
+    perm = torch.as_tensor(_bitplane_perm(), device=qe.device)
+    inv[perm] = torch.arange(BITS, device=qe.device)
+    q_enc, q_mask = q_enc[..., inv], q_mask[..., inv]
+    db = (pat.view(1, -1, BITS_BYTES), msk.view(1, -1, BITS_BYTES))
+    runs = {"old": old_pk_select(old, *args, False), "new": lambda: pk_select(*args),
+            "old_kernel": old_pk_select(old, *args, True),
+            "new_kernel": new_pk_select_kernel(*args),
+            "int8_pair": lambda: match_packed_int8_pairs(q_enc, q_mask, *db)}
+    equal = all(torch.equal(f(), want) for f in runs.values())
+    o_ms, n_ms = in_turns(runs["old"], runs["new"])
+    ok_ms, nk_ms = in_turns(runs["old_kernel"], runs["new_kernel"])
+    pair_ms = cuda_ms(runs["int8_pair"])
+    dot_ms = cuda_ms(lambda: pk_dot(*args))
+    sass = sass_functions(str(_build.build().path))
+    bmma = {k: sum(op.startswith("BMMA") for op in ops) for name, ops in sass.items()
+            for k in ("pk_dot_kernel", "pk_select_kernel") if k in name}
+    ptxas = {k: ptxas_lines(k) for k in ("pk_dot_kernel", "pk_select_kernel")}
+    rec = {"old_ms": o_ms, "new_ms": n_ms, "old_kernel_ms": ok_ms, "new_kernel_ms": nk_ms,
+           "int8_pair_ms": pair_ms, "pk_dot_ms": dot_ms, "bound_ms": PK_BOUND_MS,
+           "equal": equal, "winner": want.ravel().tolist(), "entries": PK_DB, "bmma": bmma,
+           "ptxas": ptxas}
+    print(f"pk_select N={PK_DB} B=1: old {o_ms:.4f} ms, new {n_ms:.4f} ms (the kernel alone, "
+          f"operand prepared once: old {ok_ms:.4f}, new {nk_ms:.4f}); speed-up "
+          f"{o_ms / n_ms:.2f}x; bound {PK_BOUND_MS} ms, {PK_BOUND_MS / n_ms:.1%} of it "
+          f"({PK_BOUND_MS / nk_ms:.1%} as a kernel); the int8 kernel at qg=2, nq=1 "
+          f"{pair_ms:.4f} ms; pk_dot {dot_ms:.4f} ms; bit-equal to pk_select_reference "
+          f"{equal} {rec['winner']} [{card}]")
+    print(f"b1 kernels: SASS BMMA {json.dumps(bmma)}; ptxas {json.dumps(ptxas)}")
+    return rec
+
+
+REQUEST_CODE = r"""
+import json, sys, time
+import numpy as np, torch
+from mpc_iris_tpu_torch.models.engines import PlaintextEngine
+from mpc_iris_tpu_torch.parallel import ShardedPlaintextEngine, make_mesh
+from mpc_iris_tpu_torch.smoke_data import make_db
+n, batches, reps = int(sys.argv[1]), json.loads(sys.argv[2]), int(sys.argv[3])
+dev = torch.device("cuda", 0)
+pat, msk, _, _, qpat, qmsk = make_db(np.random.default_rng(0), n)
+eng = PlaintextEngine(pat, msk, device=dev, storage="packed")
+sharded = ShardedPlaintextEngine(pat, msk, make_mesh(4, devices=[dev] * 4))
+
+def wall(fn):
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+res = {f"match B={b}": wall(lambda: eng.match(qpat[:b], qmsk[:b])) for b in batches}
+res["sharded (4, 1) B=1"] = wall(lambda: sharded.match(qpat[:1], qmsk[:1]))
+b = max(batches)
+res["winners"] = [[r.index, r.distance] for r in eng.match(qpat[:b], qmsk[:b])]
+print("REQUESTS " + json.dumps(res))
+"""
+
+
+def request_times(root: str) -> dict:
+    """One subprocess with the package under ``root`` first on the path:
+    PlaintextEngine.match at REQUEST_BATCHES over PK_DB packed entries and the
+    sharded B = 1 request on 4 shards of this card, the median host wall of
+    REQUEST_REPS calls each (ms), and the winners."""
+    path = os.pathsep.join([root, os.environ.get("PYTHONPATH", "")])
+    env = {**os.environ, "PYTHONPATH": path}
+    proc = subprocess.run([sys.executable, "-c", REQUEST_CODE, str(PK_DB),
+                           json.dumps(REQUEST_BATCHES), str(REQUEST_REPS)], env=env, cwd=root,
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"requests under {root} failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    line = next(l for l in proc.stdout.splitlines() if l.startswith("REQUESTS "))
+    return json.loads(line[len("REQUESTS "):])
+
+
+def request_turns(old_csrc: str, card: str) -> dict:
+    """The requests of the old package (the tree holding ``old_csrc``) and
+    this one in turns: old, new, new, old; each's median of its two turns."""
+    old_root = os.path.dirname(os.path.dirname(os.path.abspath(old_csrc)))
+    runs = [request_times(r) for r in (old_root, REPO, REPO, old_root)]
+    keys = [k for k in runs[0] if k != "winners"]
+    rec = {k: {"old_ms": float(np.median([runs[0][k], runs[3][k]])),
+               "new_ms": float(np.median([runs[1][k], runs[2][k]]))} for k in keys}
+    rec["equal"] = all(r["winners"] == runs[0]["winners"] for r in runs)
+    for k in keys:
+        print(f"request {k} N={PK_DB}: old {rec[k]['old_ms']:.3f} ms, new "
+              f"{rec[k]['new_ms']:.3f} ms (median of {REQUEST_REPS}, host wall; turns "
+              f"{[round(r[k], 3) for r in runs]}) [{card}]")
+    print(f"requests: winners equal across the four runs {rec['equal']}")
     return rec
 
 
@@ -408,6 +614,11 @@ def main() -> int:
     if "pk_dot" in args.kernels:
         res["pk_dot"] = pk_dot_turns(old, card)
         ok &= res["pk_dot"]["equal"]
+    if "pk_select" in args.kernels:
+        res["pk_select"] = pk_select_turns(old, card)
+        ok &= res["pk_select"]["equal"]
+        res["requests"] = request_turns(args.old, card)
+        ok &= res["requests"]["equal"]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -206,14 +206,27 @@ def test_pk_dot_winner_index_ties():
         np.testing.assert_array_equal(got, [[2], [6], [129]])
 
 
+@functools.cache
+def _old_vs_new():
+    """scripts/probe_kernels_old_vs_new_torch.py, whose old pk-select and
+    pk-dot take kernel (b)'s query layout."""
+    spec = importlib.util.spec_from_file_location(
+        "probe_kernels_old_vs_new_torch",
+        os.path.join(REPO, "scripts", "probe_kernels_old_vs_new_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_query_slabs_are_kernel_b_tiles():
-    """The kernels' query operand: with the rows put back in rotation order
-    it is kernel (b)'s operand of a group of one (_query_tiles)."""
+    """The old-vs-new runner's query operand of the int8 designs: with the
+    rows put back in rotation order it is kernel (b)'s operand of a group of
+    one (_query_tiles)."""
     _, _, qpat, qmsk = _db(1024, 3)
     qp, qm = torch.from_numpy(qpat), torch.from_numpy(qmsk)
     qe, qmk = bp.prep_query(qp, qm)
     rev = torch.as_tensor(bp.ROT_BITREV)
-    assert torch.equal(bp._query_slabs(qe[rev], qmk[rev]),
+    assert torch.equal(_old_vs_new()._query_slabs(qe[rev], qmk[rev]),
                        _query_tiles(*prepare_query_planes(qp, qm), 1)[0])
 
 

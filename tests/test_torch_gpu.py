@@ -52,10 +52,11 @@ def test_select_chunk_kernel(cuda, n_cols, offset):
 
 
 # Batches of every query group size of the launch plan, more than one group
-# (16, 33); entry counts (912, 1000, 704, 800) that no entry tile (128 or 256
-# entries) divides; planted_packed_case's rotation ties and duplicates at
-# rows 129 and 257 (congruent mod 128).
-PACKED_CASES = [(1, 304), (2, 1000), (3, 1000), (8, 64), (16, 200), (33, 304)]
+# (16, 33), a group of 4 beside a group of one (5: the int8 and the binary
+# kernel in one call); entry counts (912, 1000, 704, 800) that no entry tile
+# (128 or 256 entries) divides; planted_packed_case's rotation ties and
+# duplicates at rows 129 and 257 (congruent mod 128).
+PACKED_CASES = [(1, 304), (2, 1000), (3, 1000), (8, 64), (16, 200), (33, 304), (5, 256)]
 
 
 def _packed_case(cuda, b, chunk):
@@ -463,6 +464,80 @@ def test_b1_packed_kernels(cuda, n):
     assert torch.equal(win, tpm.match_packed_small_b(q_enc, q_mask, pat.view(1, n, 1600),
                                                      msk.view(1, n, 1600)))
     assert win[:, 0].tolist()[::2] == [0, 17] and torch.equal(tb1.pk_dot_winner(packed), win)
+
+
+# pk_select_kernel at one entry, the tile edges (255, 256, 257 entries), the
+# planted traps (700 entries: rotation ties, duplicates at 129 and 257) and
+# one entry past a wave of 132 blocks of 256; a random query a noisy copy of
+# entry a (a nonzero distance) with an exact duplicate of a at b, past a tile
+# edge (255, 256) or in the next wave (33,791, 33,792).
+PK_SELECT_N = [1, 255, 256, 257, 700, 132 * 256 + 1]
+
+
+def _pk_select_case(n: int):
+    rng = np.random.default_rng(n + 7)
+    if n == 700:
+        pat, msk, qpat, qmsk = tpm.planted_packed_case(rng, n=n, b=1)
+        return pat, msk, qpat, qmsk, 129
+    pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    a, b = (n - 2, n - 1) if n > 1000 else (255, 256)
+    if b < n:
+        pat[b], msk[b] = pat[a], msk[a]
+    a = min(a, n - 1)
+    qpat = pat[a:a + 1] ^ (rng.integers(0, 256, (1, 1600), dtype=np.uint8) & 0x11)
+    return pat, msk, qpat, msk[a:a + 1].copy(), a
+
+
+@pytest.mark.parametrize("n", PK_SELECT_N)
+def test_pk_select_kernel(cuda, n):
+    """pk_select (csrc/b1_packed.cu's pk_select_kernel) against its plain
+    version, the int8 match kernel at a group of 2 with one query, and
+    match_packed_small_b at B = 1, which launches the same kernel."""
+    pat, msk, qpat, qmsk, a = _pk_select_case(n)
+    qp, qm = (torch.from_numpy(x).to(cuda) for x in (qpat, qmsk))
+    pat, msk = torch.from_numpy(pat).to(cuda), torch.from_numpy(msk).to(cuda)
+    qe, qmk = tb1.prep_query(qp, qm)
+    before = tb1.pk_select.launches, tpm.match_packed_small_b.launches
+    got = tb1.pk_select(qe, qmk, pat, msk)
+    q_enc, q_mask = prepare_query_planes(qp, qm)
+    db = (pat.view(1, n, 1600), msk.view(1, n, 1600))
+    route = tpm.match_packed_small_b(q_enc, q_mask, *db)
+    torch.cuda.synchronize()
+    assert (tb1.pk_select.launches, tpm.match_packed_small_b.launches) == (before[0] + 1,
+                                                                           before[1] + 1)
+    # the plain version's int8 product on the card needs a multiple of 8 entries;
+    # the zero entries padded on never win (den 0)
+    pad = -n % 8
+    want = tb1.pk_select_reference(qe, qmk, torch.nn.functional.pad(pat, (0, 0, 0, pad)),
+                                   torch.nn.functional.pad(msk, (0, 0, 0, pad)))
+    assert torch.equal(got, want)
+    assert torch.equal(got, tpm.match_packed_int8_pairs(q_enc, q_mask, *db))
+    assert torch.equal(route, got)
+    assert int(got[2, 0]) == a
+
+
+def test_b1_select_refuses_other_queries(cuda):
+    """pk_select and match_packed_small_b's group of one raise on a query
+    that is not bit-valued (after the launch, which the counters show); the
+    groups of 2 and 4 take any int8 query."""
+    rng = np.random.default_rng(5)
+    pat, msk = (torch.from_numpy(rng.integers(0, 256, (512, 1600), dtype=np.uint8)).to(cuda)
+                for _ in range(2))
+    qe = torch.from_numpy(rng.integers(-3, 4, (32, 12_800), dtype=np.int8)).to(cuda)
+    qm = torch.from_numpy(rng.integers(0, 2, (32, 12_800), dtype=np.int8)).to(cuda)
+    before = tb1.pk_select.launches, tpm.match_packed_small_b.launches
+    with pytest.raises(ValueError, match="bit-valued"):
+        tb1.pk_select(qe, qm, pat, msk)
+    q_enc, q_mask = prepare_query_planes(pat[:5], msk[:5])
+    q_enc[1, 3, :100] = q_enc[4, 3, :100] = 2
+    db = (pat.view(1, 512, 1600), msk.view(1, 512, 1600))
+    with pytest.raises(ValueError, match="bit-valued"):
+        tpm.match_packed_small_b(q_enc, q_mask, *db)
+    assert (tb1.pk_select.launches, tpm.match_packed_small_b.launches) == (before[0] + 1,
+                                                                           before[1] + 2)
+    assert torch.equal(tpm.match_packed_small_b(q_enc[:4], q_mask[:4], *db),
+                       tpm.match_packed_small_b_reference(q_enc[:4], q_mask[:4], *db))
 
 
 # pk_dot's tile edges (256 and 512 entries, one TMA box of 256 rows), a few
