@@ -12,7 +12,9 @@ NVIDIA GPU, at full size, and check them.
   duplicated entry at its lower index; and ``distances()`` against the scalar
   oracle ``Template.distance`` for 2 queries x 256 sampled entries;
 - serves audit requests on the same engines: ``min_fractions`` at B = 1 and 8
-  (kernel fractions_packed_small_b), bit-equal to the plain spectrum and, on
+  (kernel fractions_packed_small_b; its groups of one query, B = 1, launch
+  csrc/b1_packed.cu's pk_fractions_kernel, counted apart as
+  ``pk_fractions``), bit-equal to the plain spectrum and, on
   sampled entries, to ``Template.distance``; ``find_under`` at threshold
   0.375 for packed B = 1, 8 (the kernel plus the device compaction) and 13
   (the spectrum scan) and dense B = 8, each list equal to the plain
@@ -139,12 +141,13 @@ NVIDIA GPU, at full size, and check them.
   the dispatch boundary, with their int8 op rate, their bound (bytes at
   3.35 TB/s or int8 ops at 1,979 TOPS) and share of it, the query bytes
   they read from L2, and the SM clock and power nvidia-smi samples while
-  (b) runs;
+  (b) runs; (c) at B = 1 (``pk_fractions``) as a call and as a kernel
+  beside the int8 kernel at a group of 2;
 - checks that no module of jax or of the JAX package ``mpc_iris_tpu`` was
   imported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-card, the one before that the kernels as JSON (nineteen kernels, each with
+card, the one before that the kernels as JSON (twenty kernels, each with
 its bound).
 Exits nonzero, printing no result, without a CUDA card or when any build,
 launch or check fails.
@@ -195,6 +198,7 @@ from mpc_iris_tpu_torch.models.engines import (
 from mpc_iris_tpu_torch.ops import _build, stream_probes
 from mpc_iris_tpu_torch.ops.b1_packed import (
     Q_ROW,
+    launch_fractions,
     pk_dot,
     pk_dot_reference,
     pk_dot_winner,
@@ -226,6 +230,7 @@ from mpc_iris_tpu_torch.ops.keyed_dot import (
 )
 from mpc_iris_tpu_torch.ops.packed_match import (
     _launch_plan,
+    _one_query_operand,
     fractions_packed_small_b,
     fractions_packed_small_b_reference,
     match_packed_int8_pairs,
@@ -1097,14 +1102,16 @@ def sharded_match_phase(dev, packed, pat, msk, planted, xpair, qpat, qmsk, card)
     print(f"launches in the sharded match run: {json.dumps(launches)}")
     check(launches["select_chunk"] > 0 and launches["match_packed_small_b"] > 0,
           "kernels (a) and (b) launched on the sharded match path")
-    for fn in counted:
+    for fn in (*counted, launch_fractions):
         fn.launches = 0
     spectrum = eng.min_fractions(sq[:1], sm[:1])
     under = eng.find_under(sq[:8], sm[:8], AUDIT_THRESHOLD)
-    audit = {fn.__name__: fn.launches for fn in counted}
+    audit = {fn.__name__: fn.launches for fn in (*counted, launch_fractions)}
     print(f"launches in the sharded audit run: {json.dumps(audit)}")
-    check(audit["fractions_packed_small_b"] > 0, "kernel (c) launched on the sharded audit path")
+    check(audit["fractions_packed_small_b"] > 0 and audit["launch_fractions"] > 0,
+          "kernel (c) and its B = 1 kernel pk_fractions launched on the sharded audit path")
     launches["fractions_packed_small_b"] = audit["fractions_packed_small_b"]
+    launches["pk_fractions"] = audit["launch_fractions"]
 
     for (e, shape, bb), res in zip(requests, served):
         check(result_rows(res) == result_rows(packed.match(sq[:bb], sm[:bb])),
@@ -1137,10 +1144,12 @@ def sharded_match_phase(dev, packed, pat, msk, planted, xpair, qpat, qmsk, card)
         p_ms = wall_ms(lambda: packed.match(sq[:bb], sm[:bb]), SHARDED_REPS)
         print(f"time sharded request {shape} N={e.count} B={bb}: {s_ms:.3f} ms, single-card "
               f"{p_ms:.3f} ms (median of {SHARDED_REPS}, host wall) [{card}]")
-    s_ms = wall_ms(lambda: eng.find_under(sq[:8], sm[:8], AUDIT_THRESHOLD), SHARDED_REPS)
-    p_ms = wall_ms(lambda: packed.find_under(sq[:8], sm[:8], AUDIT_THRESHOLD), SHARDED_REPS)
-    print(f"time sharded find_under (4, 1) B=8: {s_ms:.3f} ms, single-card {p_ms:.3f} ms "
-          f"(median of {SHARDED_REPS}, host wall) [{card}]")
+    for bb in (1, 8):
+        s_ms = wall_ms(lambda: eng.find_under(sq[:bb], sm[:bb], AUDIT_THRESHOLD), SHARDED_REPS)
+        p_ms = wall_ms(lambda: packed.find_under(sq[:bb], sm[:bb], AUDIT_THRESHOLD),
+                       SHARDED_REPS)
+        print(f"time sharded find_under (4, 1) B={bb}: {s_ms:.3f} ms, single-card {p_ms:.3f} "
+              f"ms (median of {SHARDED_REPS}, host wall) [{card}]")
     tri = [torch.randint(0, 12800, (3, 8), dtype=torch.int32, device=dev) for _ in range(SHARDS)]
     f_ms = cuda_ms(lambda: fraction_allmin(*zip(*tri), dev), 20)
     print(f"time fraction_allmin over {SHARDS} shards B=8: {f_ms:.4f} ms (CUDA events) [{card}]")
@@ -2040,7 +2049,8 @@ def main() -> int:
                                        "packed_fractions_kernel", "fold_parts_kernel",
                                        "chacha_planes_kernel", "int8_gemm_kernel",
                                        "keyed_share_dot_kernel", "pk_dot_kernel",
-                                       "pk_select_kernel", "tile_select_kernel",
+                                       "pk_select_kernel", "pk_fractions_kernel",
+                                       "tile_select_kernel",
                                        "fold_tiles_kernel", "stream_kernel")
                                if k in line), line)
             config = re.findall(r"L[ib](\d+)E", line)
@@ -2133,7 +2143,7 @@ def main() -> int:
                       ("packed", packed, 13, qpat, qmsk), ("dense", dense, 8, dqpat, dqmsk)]
 
     # ---- the audit path, counted
-    for fn in counted:
+    for fn in (*counted, launch_fractions):
         fn.launches = 0
     spectra = {bb: packed.min_fractions(qpat[:bb], qmsk[:bb]) for bb in (1, 8)}
     audits = [eng.find_under(qp[:bb], qm[:bb], AUDIT_THRESHOLD)
@@ -2145,11 +2155,14 @@ def main() -> int:
         limit_raised = False
     except AuditLimitExceeded:
         limit_raised = True
-    audit_launches = {fn.__name__: fn.launches for fn in counted}
+    audit_launches = {fn.__name__: fn.launches for fn in (*counted, launch_fractions)}
     print(f"launches in the audit-path run: {json.dumps(audit_launches)}")
-    check(audit_launches["fractions_packed_small_b"] > 0,
-          "fractions_packed_small_b launched on the audit path")
+    check(audit_launches["fractions_packed_small_b"] > 0
+          and audit_launches["launch_fractions"] > 0,
+          "fractions_packed_small_b and its B = 1 kernel pk_fractions launched on the "
+          "audit path")
     launches["fractions_packed_small_b"] = audit_launches["fractions_packed_small_b"]
+    launches["pk_fractions"] = audit_launches["launch_fractions"]
 
     # ---- correctness of every audit request
     for bb, nd in spectra.items():
@@ -2203,6 +2216,10 @@ def main() -> int:
         ms = wall_ms(lambda: eng.find_under(qp[:bb], qm[:bb], AUDIT_THRESHOLD), 3)
         print(f"time request find_under {storage} N={eng.count} B={bb} "
               f"t={AUDIT_THRESHOLD}: {ms:.3f} ms (median of 3, host wall) [{card}]")
+    for bb in (1, 8):
+        ms = wall_ms(lambda: packed.min_fractions(qpat[:bb], qmsk[:bb]), 3)
+        print(f"time request min_fractions packed N={packed.count} B={bb}: {ms:.3f} ms "
+              f"(median of 3, host wall; the host copy of the spectrum included) [{card}]")
 
     kernels = []
     # (a) select_chunk at the packed scan's shapes: one chunk's products
@@ -2295,6 +2312,31 @@ def main() -> int:
                     "source": "mpc_iris_tpu_torch/csrc/packed_fractions.cu",
                     "replaces": "mpc_iris_tpu/ops/packed_match.py:227",
                     "launches": launches["fractions_packed_small_b"], "max_abs_err": err,
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+    # (c) at B = 1: pk_fractions_kernel as the sweep's call (operand, query
+    # check, launch, the wait for the check) and as a kernel alone (operand
+    # made once); beside it the int8 kernel at a group of 2 (two queries)
+    err, k_ms, p_ms, bound_ms, bound_by = c_rows[1]
+    q1 = _one_query_operand(q_enc[:1], q_mask[:1])
+    spectrum = torch.empty((2, 1, packed.count), dtype=torch.int16, device=dev)
+    kernel_ms = cuda_ms(lambda: launch_fractions("pk_fractions", lib, q1, packed.db_pat,
+                                                 packed.db_msk, packed.count, spectrum,
+                                                 packed.count), 20)
+    check(torch.equal(spectrum, fractions_packed_small_b(q_enc[:1], q_mask[:1], packed.db_pat,
+                                                         packed.db_msk)),
+          "pk_fractions: the bare launch equals the call")
+    pair_ms = cuda_ms(lambda: fractions_packed_small_b(q_enc[:2], q_mask[:2], packed.db_pat,
+                                                       packed.db_msk), 5)
+    print(f"time kernel pk_fractions N={packed.count} B=1: {k_ms:.4f} ms as a call, "
+          f"{kernel_ms:.4f} ms as a kernel; bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / k_ms:.1%} / {bound_ms / kernel_ms:.1%} of it; plain {p_ms:.3f} ms; "
+          f"the int8 kernel at B = 2 (a group of 2) {pair_ms:.4f} ms [{card}]")
+    del spectrum
+    kernels.append({"name": "pk_fractions", "route": "cuda",
+                    "source": "mpc_iris_tpu_torch/csrc/b1_packed.cu",
+                    "replaces": "mpc_iris_tpu/ops/packed_match.py:227",
+                    "launches": launches["pk_fractions"], "max_abs_err": err,
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None})
 

@@ -1,12 +1,15 @@
 // The B = 1 kernels over the BIT-PACKED template DB, on the binary tensor
-// cores: pk-dot (the products, packed per position and entry) and pk-select
-// (the products and the exact winner), one tile loop for both.
+// cores: pk-dot (the products, packed per position and entry), pk-select
+// (the products and the exact winner) and pk-fractions (the products and the
+// audit spectrum), one tile loop for all three.
 //
 // Replaces the TPU kernels scripts/b1_kernel_probe.py::make_pk_dot and
 // make_pk_select; pk-select is also kernel (b) (mpc_iris_tpu/ops/
 // packed_match.py::_pk_select_kernel) for a group of one query: the
-// wrapper of match_packed_small_b launches it for every one-query group.
-// Both take the query as an operand of packed bits (the wrappers'
+// wrapper of match_packed_small_b launches it for every one-query group;
+// pk-fractions is kernel (c) (the same file's _pk_fractions_kernel) for a
+// group of one query, which fractions_packed_small_b launches likewise.
+// All take the query as an operand of packed bits (the wrappers'
 // pk_dot_operand and _one_query_operand): 64 rows of 1,600 bytes, row p the
 // mask bits of query row p, row 32 + p its pattern-and-mask bits, packed as
 // the DB is (K in the packed byte order), and the DB as uint8 [N][1600]
@@ -21,11 +24,16 @@
 //   rotation), then the exact argmin over entries, ties to the lowest
 //   index, den = 0 never winning (frac.cuh): int32 [3] = (n, d, idx). It
 //   writes nothing per entry.
+// - pk_fractions_kernel: rows in rotation order, as pk-select. Per entry the
+//   same exact minimum over the rows, the earliest rotation's (n, d) on equal
+//   fractions, written as int16 n at out[e] and d at out[plane + e]; an entry
+//   with no valid row (den = 0 everywhere: n = 0 there too) reports (0, 0).
 //
 // What bounds them on the H100: the 3,200 bytes of packed DB an entry, 1.00
 // ms at 1M entries at 3.35 TB/s (pk-dot also writes 128 bytes an entry,
-// 0.04 ms), against 0.87 ms of int8 operations (32 rows x 12,800 x 2
-// products x 2 ops an entry at 1,979 TOPS). So both are bound by bytes.
+// 0.04 ms; pk-fractions 4, 0.001 ms), against 0.87 ms of int8 operations (32
+// rows x 12,800 x 2 products x 2 ops an entry at 1,979 TOPS). So all three
+// are bound by bytes.
 //
 // The design is binary. For a bit-valued query (qm = mask bits mq, qe =
 // mq - 2 pmq with pmq its pattern-and-mask bits, as prep_query gives) and the
@@ -52,14 +60,18 @@
 //   stage back (after fence.proxy.async: the TMA may refill it at once) and
 //   runs 32 mma.sync. Persistent: one block an SM walks the tiles.
 // - The epilogues take a tile's accumulators in registers: pk-dot packs
-//   (den << 16) | num and streams it out; pk-select folds each n-tile at
-//   once (its 4 m-tiles in the thread, then the 8 lanes of an entry by xor
-//   shuffles 4, 8, 16, the row as the index) into one running Frac a thread
-//   with the global entry index, and after the block's last tile the 8
-//   consumer warps (a named barrier: the producer warp has returned) leave
-//   one partial a block, which fold_parts_kernel folds (frac.cuh). Every
-//   step is frac_select, a lexicographic minimum over (fraction, index), so
-//   the order of the folds cannot change the winner.
+//   (den << 16) | num and streams it out; pk-select and pk-fractions fold
+//   each n-tile at once (its 4 m-tiles in the thread, then the 8 lanes of an
+//   entry by xor shuffles 4, 8, 16, the row as the index). pk-select folds
+//   that into one running Frac a thread with the global entry index, and
+//   after the block's last tile the 8 consumer warps (a named barrier: the
+//   producer warp has returned) leave one partial a block, which
+//   fold_parts_kernel folds (frac.cuh). pk-fractions keeps n-tile g's
+//   result in lane 4g + t4, which is the warp's entry `lane`, and each lane
+//   writes its own entry: one coalesced 64-byte store a warp and plane, no
+//   shared memory, nothing carried across tiles. Every step is frac_select,
+//   a lexicographic minimum over (fraction, index), so the order of the folds
+//   cannot change the result.
 #include <cuda.h>
 #include <cuda_runtime.h>
 
@@ -123,7 +135,7 @@ using Acc = int[kNt][4][4];
 
 __device__ __forceinline__ int acc_num(const int (&d)[4]) { return d[1] + d[2] - 2 * d[3]; }
 
-// The persistent walk of both kernels: block b takes tiles b, b + gridDim.x,
+// The persistent walk of the three kernels: block b takes tiles b, b + gridDim.x,
 // ... of kTile entries. The producer warp loads the query once, then the
 // stages, and returns false. Each consumer warp runs the products of its 32
 // entries of every tile and hands each tile's accumulators to
@@ -271,6 +283,24 @@ pk_dot_kernel(const __grid_constant__ CUtensorMap pat_map,
   pk_tiles(&pat_map, &msk_map, q, tiles, epi);
 }
 
+// The exact rotation minimum of entry 4 nt + t4 of the warp's 32, in every
+// lane 4 g' + t4: its rows 8 mt + g in this lane (the row as the index), then
+// its other rows in the lanes 4 g' + t4 by xor shuffles 4, 8, 16.
+__device__ __forceinline__ Frac entry_min(const Acc& acc, int nt, int g) {
+  Frac f = frac_pad();
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt) {
+    f = frac_select(f, Frac{acc_num(acc[nt][mt]), acc[nt][mt][0], 8 * mt + g});
+  }
+#pragma unroll
+  for (int s = 4; s < 32; s <<= 1) {
+    const Frac o{__shfl_xor_sync(0xffffffffu, f.n, s), __shfl_xor_sync(0xffffffffu, f.d, s),
+                 __shfl_xor_sync(0xffffffffu, f.i, s)};
+    f = frac_select(f, o);
+  }
+  return f;
+}
+
 // ---- pk-select: the exact winner, one partial a block
 struct SelectBest {
   long long n_entries;
@@ -280,19 +310,7 @@ struct SelectBest {
     const long long e0 = static_cast<long long>(t) * kTile + 32 * warp + t4;
 #pragma unroll
     for (int nt = 0; nt < kNt; ++nt) {
-      // entry 4 nt + t4: its rows 8 mt + g in this lane, the row as the index
-      Frac f = frac_pad();
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        f = frac_select(f, Frac{acc_num(acc[nt][mt]), acc[nt][mt][0], 8 * mt + g});
-      }
-      // and its other rows in the lanes 4 g' + t4
-#pragma unroll
-      for (int s = 4; s < 32; s <<= 1) {
-        const Frac o{__shfl_xor_sync(0xffffffffu, f.n, s), __shfl_xor_sync(0xffffffffu, f.d, s),
-                     __shfl_xor_sync(0xffffffffu, f.i, s)};
-        f = frac_select(f, o);
-      }
+      const Frac f = entry_min(acc, nt, g);
       const long long e = e0 + 4 * nt;
       if (e < n_entries) best = frac_select(best, Frac{f.n, f.d, static_cast<int>(e)});
     }
@@ -320,6 +338,42 @@ pk_select_kernel(const __grid_constant__ CUtensorMap pat_map,
     part[gridDim.x + blockIdx.x] = b.d;
     part[2 * gridDim.x + blockIdx.x] = b.i;
   }
+}
+
+// ---- pk-fractions: per entry the exact rotation minimum, int16 n and d planes
+struct SpectrumOut {
+  int16_t* out;
+  long long n_entries;
+  long long plane;
+
+  __device__ __forceinline__ void tile(const Acc& acc, int t, int warp, int g, int t4) const {
+    // lane 4 g + t4 keeps n-tile g's entry 4 g + t4, the warp's entry `lane`
+    int n = 0;
+    int d = 0;
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt) {
+      const Frac f = entry_min(acc, nt, g);
+      if (nt == g) {
+        n = f.n;
+        d = f.d;
+      }
+    }
+    const long long e = static_cast<long long>(t) * kTile + 32 * warp + 4 * g + t4;
+    if (e < n_entries) {
+      __stcs(out + e, static_cast<int16_t>(n));
+      __stcs(out + plane + e, static_cast<int16_t>(d));
+    }
+  }
+};
+
+// q: uint8 [64][kQRow], rows in rotation order, row 31 and 63 zero.
+// out: int16, entry e's n at out[e] and its d at out[plane + e].
+__global__ void __launch_bounds__(kThreads, 1)
+pk_fractions_kernel(const __grid_constant__ CUtensorMap pat_map,
+                    const __grid_constant__ CUtensorMap msk_map, const uint8_t* __restrict__ q,
+                    long long n_entries, int tiles, int16_t* __restrict__ out, long long plane) {
+  SpectrumOut epi{out, n_entries, plane};
+  pk_tiles(&pat_map, &msk_map, q, tiles, epi);
 }
 
 // The tensor maps of the DB planes, the persistent grid (one block an SM, at
@@ -370,7 +424,7 @@ extern "C" int pk_dot_launch(const void* q, const void* dp, const void* dm, long
   return static_cast<int>(cudaGetLastError());
 }
 
-// Entries a tile of both kernels: the pk-select scratch `part` holds 3 ints
+// Entries a tile of the kernels: the pk-select scratch `part` holds 3 ints
 // a tile.
 extern "C" int pk_tile_entries() { return mpc_iris::kTile; }
 
@@ -398,5 +452,26 @@ extern "C" int pk_select_launch(const void* q, const void* dp, const void* dm,
   if (launched != cudaSuccess) return static_cast<int>(launched);
   fold_parts_kernel<<<1, kFoldThreads, 0, s>>>(static_cast<const int*>(part), grid, 1,
                                                static_cast<int*>(out), out_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q: uint8 [64][1,632], rows in rotation order (the wrapper's operand of one
+// query); dp, dm as for pk_dot_launch; out: int16, the spectrum's n plane row
+// [n_entries] and its d row `plane` elements further. Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int pk_fractions_launch(const void* q, const void* dp, const void* dm,
+                                   long long n_entries, void* out, long long plane,
+                                   void* stream) {
+  using namespace mpc_iris;
+  CUtensorMap pat_map;
+  CUtensorMap msk_map;
+  int tiles = 0;
+  int grid = 0;
+  const int err = setup(reinterpret_cast<const void*>(pk_fractions_kernel), dp, dm, n_entries,
+                        &pat_map, &msk_map, &tiles, &grid);
+  if (err != 0) return err;
+  pk_fractions_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      pat_map, msk_map, static_cast<const uint8_t*>(q), n_entries, tiles,
+      static_cast<int16_t*>(out), plane);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Small-batch audit spectrum directly over the BIT-PACKED template DB, on the
-// int8 tensor cores.
+// int8 tensor cores, for query groups of 2 and 4.
 //
 // Replaces the TPU kernel mpc_iris_tpu/ops/packed_match.py::
 // fractions_packed_small_b (kernel body _pk_fractions_kernel). Per query b
@@ -8,7 +8,10 @@
 // packed_match.cu), written as int16 planes [2][B][n_entries]: n, then d.
 // Both are at most 12,800, so int16 holds them exactly. Entries past the
 // true DB count are all-zero padding and report (0, 0), like an all-invalid
-// entry.
+// entry. Groups of one query (B = 1, and a remainder of one, as at B = 5) do
+// not come here: the wrapper launches b1_packed.cu's pk_fractions_kernel for
+// them, the binary design, which reads the DB once near the memory rate
+// where this kernel at N = 32 ran at a quarter of it.
 //
 // What bounds it on the H100: the match kernel's two int8 products (0.84 ms
 // per query at 1M entries at 1,979 TOPS) against the packed DB read once
@@ -89,8 +92,8 @@ int launch(const void* qt, const void* dp, const void* dm, long long n_entries, 
 }  // namespace
 }  // namespace mpc_iris
 
-// One launch for nq queries in groups of qg (1, 2 or 4): qt, dp, dm as for
-// match_packed_small_b_launch; out: int16, the first query's n plane row
+// One launch for nq queries in groups of qg (2 or 4; cudaErrorInvalidValue
+// for another qg): qt, dp, dm as for match_packed_small_b_launch; out: int16, the first query's n plane row
 // (its d row is `plane` elements further). Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int fractions_packed_small_b_launch(int qg, const void* qt, const void* dp,
@@ -99,8 +102,6 @@ extern "C" int fractions_packed_small_b_launch(int qg, const void* qt, const voi
   using namespace mpc_iris;
   auto s = static_cast<cudaStream_t>(stream);
   switch (qg) {
-    case 1:
-      return launch<1, tile::kMt[1]>(qt, dp, dm, n_entries, nq, out, plane, s);
     case 2:
       return launch<2, tile::kMt[2]>(qt, dp, dm, n_entries, nq, out, plane, s);
     case 4:

@@ -1,7 +1,7 @@
 // The per-entry rotation minimum over the BIT-PACKED template DB on Hopper's
 // int8 tensor cores, shared by the packed small-batch kernels: match
-// (packed_match.cu, query groups of 2 and 4) and the audit spectrum
-// (packed_fractions.cu). The binary B = 1 kernels (b1_packed.cu) use only
+// (packed_match.cu) and the audit spectrum (packed_fractions.cu), both for
+// query groups of 2 and 4. The binary B = 1 kernels (b1_packed.cu) use only
 // its staging helpers (mbarriers, bulk and TMA copies, reg_fence).
 //
 // Replaces the tile loop of the TPU kernels mpc_iris_tpu/ops/packed_match.py::
@@ -39,8 +39,8 @@
 //   B x 32 x 25,600 x N_entries / kEntries bytes of query from L2.
 // - Accumulators: MT x 2 products x N/2 int32 registers a thread (at most 128).
 // Measured on an H100 (PERF.md): 44-47% of the int8 peak at B >= 4 (N = 128),
-// 19% at B = 1 (N = 32: the audit spectrum's groups of one; match's take
-// the binary kernel of b1_packed.cu). The time follows the number of wgmma instructions;
+// 19% at B = 1 (N = 32, the groups of one query before both took the binary
+// kernels of b1_packed.cu). The time follows the number of wgmma instructions;
 // staging, unpacking, fences, A from registers or shared memory, the slab
 // layout, the wgmma depth and the operand type (e4m3) do not move it
 // (scripts/packed_tile_variants.py).
@@ -70,8 +70,8 @@ constexpr uint32_t kLsb = 0x01010101u;
 // Two warpgroups a block and nothing else: at 8 warps a thread may hold 255
 // registers, which two m64n128 int32 accumulators (QG = 4) need.
 constexpr int kThreads = 2 * 128;
-// M tiles (64 entries) per warpgroup for a query group of QG = 1, 2 or 4.
-constexpr int kMt[5] = {0, 2, 2, 0, 1};
+// M tiles (64 entries) per warpgroup for a query group of QG = 2 or 4.
+constexpr int kMt[5] = {0, 0, 2, 0, 1};
 
 // QG queries per block, MT M tiles (64 entries) per warpgroup.
 template <int QG, int MT>

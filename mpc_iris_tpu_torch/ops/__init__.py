@@ -16,7 +16,8 @@ audit and MPC paths (counterpart of ``mpc_iris_tpu/ops``).
   packed match, and the packed spectrum scan the plain packed spectrum
 - ``packed_match``: kernels ``match_packed_small_b`` (csrc/packed_match.cu;
   a group of one query csrc/b1_packed.cu's ``pk_select_kernel``) and
-  ``fractions_packed_small_b`` (csrc/packed_fractions.cu) and their plain
+  ``fractions_packed_small_b`` (csrc/packed_fractions.cu; a group of one
+  query csrc/b1_packed.cu's ``pk_fractions_kernel``) and their plain
   versions
 - ``gemm``, ``keyed_dot``: the fused-regen probe kernels ``int8_gemm``
   (csrc/int8_gemm.cu) and ``keyed_share_dots`` (csrc/keyed_share_dot.cu,

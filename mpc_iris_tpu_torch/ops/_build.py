@@ -61,6 +61,8 @@ _SIGNATURES = {
     "pk_dot_launch": ([_P, _P, _P, ctypes.c_longlong, _P, _P], ctypes.c_int),
     "pk_tile_entries": ([], ctypes.c_int),
     "pk_select_launch": ([_P, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P], ctypes.c_int),
+    "pk_fractions_launch": (
+        [_P, _P, _P, ctypes.c_longlong, _P, ctypes.c_longlong, _P], ctypes.c_int),
     "select_variant_launch": (
         [ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P,
          _P],

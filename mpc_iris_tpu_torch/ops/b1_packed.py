@@ -31,6 +31,13 @@ gives, where the probe's kernels take any int8 rows; they raise on another.
   ``ops/packed_match.py::match_packed_small_b`` launches it through
   :func:`launch_select`.
 
+The same tile loop's third kernel, ``pk_fractions_kernel``, is kernel (c)
+for a group of one query: ``ops/packed_match.py::fractions_packed_small_b``
+launches it through :func:`launch_fractions` (the audit spectrum: per entry
+the exact rotation minimum (n, d), the earliest rotation's pair on equal
+fractions). It has no probe wrapper here; its plain version is
+``fractions_packed_small_b_reference``.
+
 The probe's ``tile_n``, ``vmem_mb`` and ``int4`` change neither function (its
 selection is exact and index-aware past the first level, and the b1
 products are exact), so the wrappers take none of them; the runner
@@ -255,6 +262,21 @@ def launch_select(name: str, lib, q: torch.Tensor, pat: torch.Tensor, msk: torch
     check_launch(name, lib.pk_select_launch(q.data_ptr(), pat.data_ptr(), msk.data_ptr(),
                                             n_entries, part.data_ptr(), out.data_ptr(),
                                             out_stride, stream))
+
+
+def launch_fractions(name: str, lib, q: torch.Tensor, pat: torch.Tensor, msk: torch.Tensor,
+                     n_entries: int, out: torch.Tensor, plane: int) -> None:
+    """One launch of ``pk_fractions_kernel`` on the current stream: q, pat,
+    msk and n_entries as for :func:`launch_select`; per entry e the exact
+    rotation minimum's n into the int16 ``out``'s element e and its d into
+    element ``plane`` + e. Counts the launch; raises if it fails."""
+    stream = torch.cuda.current_stream().cuda_stream
+    check_launch(name, lib.pk_fractions_launch(q.data_ptr(), pat.data_ptr(), msk.data_ptr(),
+                                               n_entries, out.data_ptr(), plane, stream))
+    launch_fractions.launches += 1
+
+
+launch_fractions.launches = 0
 
 
 def pk_select(qe: torch.Tensor, qm: torch.Tensor, pat: torch.Tensor,

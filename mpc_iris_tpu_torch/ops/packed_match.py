@@ -6,18 +6,19 @@ kernels for CUDA tensors; for CPU tensors each takes its plain version
 (``*_reference``), a packed scan of ops/scan.py. The kernels never unpack the
 DB to memory. Per group of :func:`_launch_plan`:
 
-- groups of 2 and 4 queries, and every group of the audit spectrum, run the
-  reference's two int8 products on the tensor cores (wgmma,
-  ``csrc/packed_match.cu``, ``csrc/packed_fractions.cu``), with the DB
-  operand unpacked in registers from the packed words, one bit-plane per
-  K-step of the bit-plane-major K order (``csrc/packed_tile.cuh``); the query
-  is laid out per call by :func:`_query_tiles` in the order they read it;
-- a match group of one query (B = 1, and a remainder of one, as at B = 5)
-  takes ``csrc/b1_packed.cu``'s ``pk_select_kernel``: four AND-popcount
-  products of packed bits on the binary tensor cores and the exact
-  selection fused, the query as the packed operand of
-  :func:`_one_query_operand`. It is exact only for a bit-valued query
-  (q_mask in {0, 1}, q_enc in {-q_mask, q_mask}, as
+- groups of 2 and 4 queries run the reference's two int8 products on the
+  tensor cores (wgmma, ``csrc/packed_match.cu``, ``csrc/packed_fractions.cu``),
+  with the DB operand unpacked in registers from the packed words, one
+  bit-plane per K-step of the bit-plane-major K order
+  (``csrc/packed_tile.cuh``); the query is laid out per call by
+  :func:`_query_tiles` in the order they read it;
+- a group of one query (B = 1, and a remainder of one, as at B = 5) takes
+  ``csrc/b1_packed.cu``'s binary tile loop: four AND-popcount products of
+  packed bits on the binary tensor cores, no unpack, the query as the packed
+  operand of :func:`_one_query_operand`; the match's ``pk_select_kernel``
+  fuses the exact selection, the spectrum's ``pk_fractions_kernel`` the
+  exact rotation minimum per entry. Both are exact only for a bit-valued
+  query (q_mask in {0, 1}, q_enc in {-q_mask, q_mask}, as
   ``prepare_query_planes`` gives); the call checks that and raises.
 """
 
@@ -32,6 +33,7 @@ from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES, N_ROTATIONS
 from mpc_iris_tpu_torch.ops._build import check_launch, library
 from mpc_iris_tpu_torch.ops.b1_packed import (
     Q_ROW,
+    launch_fractions,
     launch_select,
     require_bit_valued,
     start_query_check,
@@ -85,8 +87,8 @@ def _bitplane_index(device: torch.device) -> torch.Tensor:
 def _launch_plan(b: int) -> list[tuple[int, int, int]]:
     """The kernel launches for a batch of ``b``: (first query, queries, group
     size). Groups of 4 queries (N = 128 rotation rows); a remainder of 1 or 2
-    gets its own group size, one of 3 a group of 4 with a zero query. A match
-    group of 1 takes the binary kernel (module docstring)."""
+    gets its own group size, one of 3 a group of 4 with a zero query. A group
+    of 1 takes a binary kernel (module docstring)."""
     plan = [(0, b - b % 4, 4)] if b >= 4 else []
     r = b % 4
     if r:
@@ -122,11 +124,12 @@ def _query_tiles(q_enc: torch.Tensor, q_mask: torch.Tensor, qg: int) -> torch.Te
 
 def _one_query_operand(q_enc: torch.Tensor, q_mask: torch.Tensor) -> torch.Tensor:
     """int8 [1, 31, K] prepared query planes (natural K order) -> uint8 [64,
-    Q_ROW], ``pk_select_kernel``'s query operand with the rows in rotation
-    order: row r the mask bits of rotation r, row 32 + r its
-    pattern-and-mask bits (q_enc = -1), rows 31 and 63 zero (the dummy:
-    den 0, never valid), each packed LSB-first as the DB is (``pack_bits``:
-    bit b of byte j is K index 8 j + b) and padded with zeros to Q_ROW bytes.
+    Q_ROW], the query operand of ``pk_select_kernel`` and
+    ``pk_fractions_kernel`` with the rows in rotation order: row r the mask
+    bits of rotation r, row 32 + r its pattern-and-mask bits (q_enc = -1),
+    rows 31 and 63 zero (the dummy: den 0, never valid), each packed
+    LSB-first as the DB is (``pack_bits``: bit b of byte j is K index 8 j +
+    b) and padded with zeros to Q_ROW bytes.
     It stands for the query only where it is bit-valued."""
     bits = q_mask.new_zeros((2, N_ROT_PAD, BITS))
     bits[0, :N_ROTATIONS] = q_mask[0]
@@ -287,6 +290,10 @@ def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     (numerator, denominator), the earliest rotation's pair on equal
     fractions; padded entries report (0, 0). The values are the reference's
     uint16 spectrum (all at most 12,800); callers trim to the true count.
+
+    A group of one query launches the binary kernel and is checked as in
+    :func:`match_packed_small_b`: the call waits for the check and raises
+    ValueError on a query that is not bit-valued.
     """
     launch = _launch_args("fractions_packed_small_b", q_enc, q_mask, db_pat, db_msk)
     if launch is None:
@@ -294,14 +301,24 @@ def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     lib, n_entries = launch
     b = q_enc.shape[0]
     out = torch.empty((2, b, n_entries), dtype=torch.int16, device=q_enc.device)
+    checks = []
     with torch.cuda.device(q_enc.device):
         stream = torch.cuda.current_stream().cuda_stream
         for q0, nq, qg in _launch_plan(b):
-            qt = _query_tiles(q_enc[q0:q0 + nq], q_mask[q0:q0 + nq], qg)
-            check_launch("fractions_packed_small_b", lib.fractions_packed_small_b_launch(
-                qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
-                out[0, q0].data_ptr(), b * n_entries, stream))
+            qe, qm = q_enc[q0:q0 + nq], q_mask[q0:q0 + nq]
+            if qg == 1:
+                q = _one_query_operand(qe, qm)
+                checks.append(start_query_check(qe, qm))
+                launch_fractions("fractions_packed_small_b", lib, q, db_pat, db_msk, n_entries,
+                                 out[0, q0], b * n_entries)
+            else:
+                qt = _query_tiles(qe, qm, qg)
+                check_launch("fractions_packed_small_b", lib.fractions_packed_small_b_launch(
+                    qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
+                    out[0, q0].data_ptr(), b * n_entries, stream))
             fractions_packed_small_b.launches += 1
+    for check in checks:
+        require_bit_valued("fractions_packed_small_b", check)
     return out
 
 
@@ -336,15 +353,19 @@ def check_match_packed_small_b(device) -> None:
 
 
 def check_fractions_packed_small_b(device) -> None:
-    """Kernel canary: the audit-spectrum kernel equals its plain version,
-    bit for bit, on the same planted traps; the self-match at 129 and its
-    duplicate at 257 report (0, d), the all-invalid entry 7 and the padded
-    tail (0, 0)."""
+    """Kernel canary: both audit-spectrum kernels (B = 3, a group of 4 with a
+    zero query; B = 1, the binary kernel) equal the plain version, bit for
+    bit, on the same planted traps; the self-match at 129 and its duplicate
+    at 257 report (0, d), the all-invalid entry 7 and the padded tail (0,
+    0)."""
     rng = np.random.default_rng(0xF4AC)
     pat, msk, qpat, qmsk = planted_packed_case(rng)  # 700 entries
-    args = _canary_inputs(device, pat, msk, qpat, qmsk)
-    got = fractions_packed_small_b(*args).cpu()
-    want = fractions_packed_small_b_reference(*args).cpu()
-    if (not torch.equal(got, want) or got[0, 0, 129] != 0 or got[0, 0, 257] != 0
-            or got[1, :, 7].any() or got[:, :, 700:].any()):
-        raise RuntimeError(f"fractions_packed_small_b kernel self-test FAILED on {device}")
+    q_enc, q_mask, db_pat, db_msk = _canary_inputs(device, pat, msk, qpat, qmsk)
+    for b in (3, 1):
+        args = (q_enc[:b], q_mask[:b], db_pat, db_msk)
+        got = fractions_packed_small_b(*args).cpu()
+        want = fractions_packed_small_b_reference(*args).cpu()
+        if (not torch.equal(got, want) or got[0, 0, 129] != 0 or got[0, 0, 257] != 0
+                or got[1, :, 7].any() or got[:, :, 700:].any()):
+            raise RuntimeError(f"fractions_packed_small_b kernel self-test FAILED on {device} "
+                               f"at B={b}")

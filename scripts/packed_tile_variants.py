@@ -45,8 +45,6 @@ VARIANTS = {
              [("kRefillLag = 2", "kRefillLag = 1")]),
     "pend2": ("two wgmma groups in flight per warpgroup, refill lag 3",
               [("kPending = 1", "kPending = 2"), ("kRefillLag = 2", "kRefillLag = 3")]),
-    "mt4": ("B = 1: four M tiles per warpgroup (512 entries a block)",
-            [("kMt[5] = {0, 2, 2, 0, 1};", "kMt[5] = {0, 4, 2, 0, 1};")]),
     "fp8": ("timing only: the same wgmma typed e4m3 x e4m3 -> f32", "AS_FP8"),
     "sw32": ("query slabs in the 32-byte swizzled K-major layout", [
         ("  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | "

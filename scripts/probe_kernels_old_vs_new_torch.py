@@ -1,13 +1,15 @@
 """Old against new design of the port's redesigned probe kernels, on one
 card in one process: ``int8_gemm`` (csrc/int8_gemm.cu), the serial fused
 keyed kernel (csrc/keyed_share_dot.cu, ``variant="serial"``), the B = 1
-pk-dot kernel and the B = 1 select kernel (csrc/b1_packed.cu), each beside
-its yardstick, and the pipelined keyed variant, whose code did not change,
-re-timed beside them. ``--kernels`` picks the families (default all four;
-``pk_dot``'s old path takes a tree whose pk-dot ran on kernel (b)'s tile
-loop, before the binary pk-dot: ``--kernels pk_dot`` against 0a389bc or
-earlier, ``--kernels pk_select`` against a tree whose B = 1 match ran the
-int8 kernel, 1324898 or earlier).
+pk-dot kernel, the B = 1 select kernel and the B = 1 spectrum kernel
+(csrc/b1_packed.cu), each beside its yardstick, and the pipelined keyed
+variant, whose code did not change, re-timed beside them. ``--kernels``
+picks the families (default all five; ``pk_dot``'s old path takes a tree
+whose pk-dot ran on kernel (b)'s tile loop, before the binary pk-dot:
+``--kernels pk_dot`` against 0a389bc or earlier, ``--kernels pk_select``
+against a tree whose B = 1 match ran the int8 kernel, 1324898 or earlier,
+``--kernels pk_fractions`` against a tree whose B = 1 audit spectrum ran
+the int8 kernel, baea42b or earlier).
 
 The old design is built from a directory holding an earlier commit's
 ``mpc_iris_tpu_torch/csrc`` (its int8_gemm.cu, keyed_share_dot.cu,
@@ -23,9 +25,11 @@ under ``mpc_iris_tpu_torch/build/`` and called through its own C interface
 (``int8_gemm_launch`` with the query laid out by ``wgmma_slabs``,
 ``keyed_share_dots_launch``, the ``pk_dot_launch(qt, dp, dm, n, out,
 stream)`` of a tree whose pk-dot ran on kernel (b)'s tile loop, the query
-laid out by ``_query_slabs``, and for ``pk_select`` kernel (b)'s
+laid out by ``_query_slabs``, for ``pk_select`` kernel (b)'s
 ``match_packed_small_b_launch`` with a group of one query, the int8 design
-B = 1 ran before the binary select kernel). The new design is the package's.
+B = 1 ran before the binary select kernel, and for ``pk_fractions`` kernel
+(c)'s ``fractions_packed_small_b_launch`` with a group of one query, the
+query laid out by ``_query_tiles``). The new design is the package's.
 
 Measured, CUDA events, in turns (old, new, new, old; the median of each
 design's two turns): ``int8_gemm`` at [M x 12,800] . [16,384 x 12,800] for
@@ -42,7 +46,14 @@ of the binary kernels and the ``BMMA`` count of their SASS; then
 ``PlaintextEngine.match`` at packed B = 1 and 5 over 1,048,576 entries and
 the sharded B = 1 request (4 shards on the card), host wall, one
 subprocess per package in turns (old, new, new, old), the old package being
-the ``mpc_iris_tpu_torch`` directory that holds ``--old``.
+the ``mpc_iris_tpu_torch`` directory that holds ``--old``. ``pk_fractions``
+likewise: ``fractions_packed_small_b`` at B = 1 over 1,048,576 entries (64
+chunks of 16,384) as a call and as a kernel, beside ``pk_select`` on the
+same inputs and the int8 kernel at B = 2 (a group of 2), each spectrum
+against ``fractions_packed_small_b_reference``; ptxas and the SASS ``BMMA``
+count of the three b1 kernels; then ``PlaintextEngine.find_under`` (t =
+0.375) and ``min_fractions`` at packed B = 1 and 5 and both sharded at
+B = 1, in turns as above.
 Every output is checked bit for bit: old against new, the products
 against ``torch._int_mm``, pk-dot and pk-select against their plain
 versions. Then, from ``cuobjdump -sass`` of the package's library, the
@@ -75,6 +86,7 @@ from mpc_iris_tpu_torch.constants import BITS, BITS_BYTES  # noqa: E402
 from mpc_iris_tpu_torch.ops import _build  # noqa: E402
 from mpc_iris_tpu_torch.ops.b1_packed import (  # noqa: E402
     ROT_BITREV,
+    launch_fractions,
     launch_select,
     pk_dot,
     pk_dot_operand,
@@ -95,18 +107,26 @@ from mpc_iris_tpu_torch.ops.keyed_dot import (  # noqa: E402
 )
 from mpc_iris_tpu_torch.ops.packed_match import (  # noqa: E402
     _bitplane_perm,
+    _one_query_operand,
+    _query_tiles,
+    fractions_packed_small_b,
+    fractions_packed_small_b_reference,
     match_packed_int8_pairs,
 )
 from mpc_iris_tpu_torch.ops.select import N_ROT_PAD  # noqa: E402
 
 CHUNK = 16_384
 PK_DB = 1_048_576
-KERNELS = ("gemm", "keyed", "pk_dot", "pk_select")
+KERNELS = ("gemm", "keyed", "pk_dot", "pk_select", "pk_fractions")
 FILES = {"gemm": "int8_gemm.cu", "keyed": "keyed_share_dot.cu", "pk_dot": "b1_packed.cu",
-         "pk_select": "packed_match.cu"}
+         "pk_select": "packed_match.cu", "pk_fractions": "packed_fractions.cu"}
+B1_KERNELS = ("pk_dot_kernel", "pk_select_kernel", "pk_fractions_kernel")
 REQUEST_BATCHES = (1, 5)
 REQUEST_REPS = 20
 PK_BOUND_MS = 1.0019  # pk-select's: 3.36 GB of packed DB at 3.35 TB/s (chip_smoke.py)
+# pk-fractions': the same DB and query read, 4 bytes an entry written
+PK_FRACTIONS_BOUND_MS = 1.0031
+AUDIT_T = 0.375
 PRODUCT_ROWS = (31, 248, 4_096)
 BATCHES = (1, 8)
 REPS = 20
@@ -161,7 +181,8 @@ def build_old(csrc: str, kernels=KERNELS) -> ctypes.CDLL:
                   "keyed_share_dots_launch": [i, i, i, p, p, p, u, u, i, i, p, p],
                   "pk_dot_launch": [p, p, p, ll, p, p],
                   "packed_tile_entries": [i],
-                  "match_packed_small_b_launch": [i, p, p, p, ll, i, p, p, i, p]}
+                  "match_packed_small_b_launch": [i, p, p, p, ll, i, p, p, i, p],
+                  "fractions_packed_small_b_launch": [i, p, p, p, ll, i, p, ll, p]}
     for name, argtypes in signatures.items():
         if hasattr(lib, name):
             getattr(lib, name).argtypes = argtypes
@@ -368,6 +389,25 @@ def ptxas_lines(kernel: str) -> list[str]:
     return lines
 
 
+def route_planes(qe: torch.Tensor, qm: torch.Tensor):
+    """prep_query's pair -> int8 [1, 31, 12,800] x2 as prepare_query_planes
+    gives them: the rows back in rotation order, the dummy dropped, K back in
+    the natural order."""
+    rev = torch.as_tensor(ROT_BITREV, device=qe.device)
+    inv = torch.empty(BITS, dtype=torch.long, device=qe.device)
+    inv[torch.as_tensor(_bitplane_perm(), device=qe.device)] = torch.arange(BITS,
+                                                                           device=qe.device)
+    return tuple(x[rev][:31].unsqueeze(0)[..., inv] for x in (qe, qm))
+
+
+def b1_build_lines() -> tuple[dict, dict]:
+    """The SASS BMMA count and ptxas's lines of each b1 kernel."""
+    sass = sass_functions(str(_build.build().path))
+    bmma = {k: sum(op.startswith("BMMA") for op in ops) for name, ops in sass.items()
+            for k in B1_KERNELS if k in name}
+    return bmma, {k: ptxas_lines(k) for k in B1_KERNELS}
+
+
 def pk_select_turns(old, card: str) -> dict:
     """Old against new pk-select over PK_DB entries at B = 1, as the
     wrappers run them and as kernels alone, each output against
@@ -377,13 +417,7 @@ def pk_select_turns(old, card: str) -> dict:
     args = pk_inputs(PK_DB, 0, torch.device("cuda"))
     qe, qm, pat, msk = args
     want = pk_select_reference(*args)
-    rev = torch.as_tensor(ROT_BITREV, device=qe.device)
-    q_enc, q_mask = qe[rev][:31].unsqueeze(0), qm[rev][:31].unsqueeze(0)
-    # prepare_query_planes's natural K order from prep_query's bit-plane-major
-    inv = torch.empty(BITS, dtype=torch.long, device=qe.device)
-    perm = torch.as_tensor(_bitplane_perm(), device=qe.device)
-    inv[perm] = torch.arange(BITS, device=qe.device)
-    q_enc, q_mask = q_enc[..., inv], q_mask[..., inv]
+    q_enc, q_mask = route_planes(qe, qm)
     db = (pat.view(1, -1, BITS_BYTES), msk.view(1, -1, BITS_BYTES))
     runs = {"old": old_pk_select(old, *args, False), "new": lambda: pk_select(*args),
             "old_kernel": old_pk_select(old, *args, True),
@@ -394,10 +428,7 @@ def pk_select_turns(old, card: str) -> dict:
     ok_ms, nk_ms = in_turns(runs["old_kernel"], runs["new_kernel"])
     pair_ms = cuda_ms(runs["int8_pair"])
     dot_ms = cuda_ms(lambda: pk_dot(*args))
-    sass = sass_functions(str(_build.build().path))
-    bmma = {k: sum(op.startswith("BMMA") for op in ops) for name, ops in sass.items()
-            for k in ("pk_dot_kernel", "pk_select_kernel") if k in name}
-    ptxas = {k: ptxas_lines(k) for k in ("pk_dot_kernel", "pk_select_kernel")}
+    bmma, ptxas = b1_build_lines()
     rec = {"old_ms": o_ms, "new_ms": n_ms, "old_kernel_ms": ok_ms, "new_kernel_ms": nk_ms,
            "int8_pair_ms": pair_ms, "pk_dot_ms": dot_ms, "bound_ms": PK_BOUND_MS,
            "equal": equal, "winner": want.ravel().tolist(), "entries": PK_DB, "bmma": bmma,
@@ -412,6 +443,74 @@ def pk_select_turns(old, card: str) -> dict:
     return rec
 
 
+def old_pk_fractions(lib, q_enc, q_mask, db, prepared: bool):
+    """The old B = 1 spectrum: kernel (c)'s int8 kernel with a group of one
+    query (qg = 1), its operand laid out by ``_query_tiles`` per call
+    (``prepared``: once)."""
+    fixed = _query_tiles(q_enc, q_mask, 1) if prepared else None
+    n = db[0].shape[0] * db[0].shape[1]
+    out = torch.empty((2, 1, n), dtype=torch.int16, device=q_enc.device)
+
+    def run():
+        qt = fixed if prepared else _query_tiles(q_enc, q_mask, 1)
+        rc = lib.fractions_packed_small_b_launch(1, qt.data_ptr(), db[0].data_ptr(),
+                                                 db[1].data_ptr(), n, 1, out.data_ptr(), n,
+                                                 torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"old pk_fractions launch failed: {rc}")
+        return out
+    return run
+
+
+def new_pk_fractions_kernel(q_enc, q_mask, db):
+    """The package's pk-fractions kernel alone: its operand laid out once,
+    no query check."""
+    a = _one_query_operand(q_enc, q_mask)
+    n = db[0].shape[0] * db[0].shape[1]
+    out = torch.empty((2, 1, n), dtype=torch.int16, device=q_enc.device)
+    lib = _build.library()
+
+    def run():
+        launch_fractions("pk_fractions", lib, a, *db, n, out, n)
+        return out
+    return run
+
+
+def pk_fractions_turns(old, card: str) -> dict:
+    """Old against new B = 1 audit spectrum over PK_DB entries, as the
+    wrappers run them and as kernels alone, each against
+    fractions_packed_small_b_reference; beside them pk_select on the same
+    inputs and the int8 kernel at B = 2; ptxas's lines and the SASS BMMA
+    count of the b1 kernels."""
+    args = pk_inputs(PK_DB, 0, torch.device("cuda"))
+    q_enc, q_mask = route_planes(*args[:2])
+    db = tuple(x.view(-1, CHUNK, BITS_BYTES) for x in args[2:])
+    want = fractions_packed_small_b_reference(q_enc, q_mask, *db)
+    runs = {"old": old_pk_fractions(old, q_enc, q_mask, db, False),
+            "new": lambda: fractions_packed_small_b(q_enc, q_mask, *db),
+            "old_kernel": old_pk_fractions(old, q_enc, q_mask, db, True),
+            "new_kernel": new_pk_fractions_kernel(q_enc, q_mask, db)}
+    equal = all(torch.equal(f(), want) for f in runs.values())
+    del want
+    o_ms, n_ms = in_turns(runs["old"], runs["new"])
+    ok_ms, nk_ms = in_turns(runs["old_kernel"], runs["new_kernel"])
+    q2 = tuple(torch.cat([x, x]) for x in (q_enc, q_mask))
+    pair_ms = cuda_ms(lambda: fractions_packed_small_b(*q2, *db))
+    select_ms = cuda_ms(lambda: pk_select(*args))
+    bmma, ptxas = b1_build_lines()
+    rec = {"old_ms": o_ms, "new_ms": n_ms, "old_kernel_ms": ok_ms, "new_kernel_ms": nk_ms,
+           "int8_b2_ms": pair_ms, "pk_select_ms": select_ms, "bound_ms": PK_FRACTIONS_BOUND_MS,
+           "equal": equal, "entries": PK_DB, "bmma": bmma, "ptxas": ptxas}
+    print(f"pk_fractions N={PK_DB} B=1: old {o_ms:.4f} ms, new {n_ms:.4f} ms (the kernel "
+          f"alone, operand prepared once: old {ok_ms:.4f}, new {nk_ms:.4f}); speed-up "
+          f"{o_ms / n_ms:.2f}x; bound {PK_FRACTIONS_BOUND_MS} ms, "
+          f"{PK_FRACTIONS_BOUND_MS / n_ms:.1%} of it ({PK_FRACTIONS_BOUND_MS / nk_ms:.1%} as a "
+          f"kernel); the int8 kernel at B=2 {pair_ms:.4f} ms; pk_select {select_ms:.4f} ms; "
+          f"bit-equal to fractions_packed_small_b_reference {equal} [{card}]")
+    print(f"b1 kernels: SASS BMMA {json.dumps(bmma)}; ptxas {json.dumps(ptxas)}")
+    return rec
+
+
 REQUEST_CODE = r"""
 import json, sys, time
 import numpy as np, torch
@@ -419,6 +518,7 @@ from mpc_iris_tpu_torch.models.engines import PlaintextEngine
 from mpc_iris_tpu_torch.parallel import ShardedPlaintextEngine, make_mesh
 from mpc_iris_tpu_torch.smoke_data import make_db
 n, batches, reps = int(sys.argv[1]), json.loads(sys.argv[2]), int(sys.argv[3])
+kind = sys.argv[4]
 dev = torch.device("cuda", 0)
 pat, msk, _, _, qpat, qmsk = make_db(np.random.default_rng(0), n)
 eng = PlaintextEngine(pat, msk, device=dev, storage="packed")
@@ -433,23 +533,40 @@ def wall(fn):
         ts.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(ts))
 
-res = {f"match B={b}": wall(lambda: eng.match(qpat[:b], qmsk[:b])) for b in batches}
-res["sharded (4, 1) B=1"] = wall(lambda: sharded.match(qpat[:1], qmsk[:1]))
 b = max(batches)
-res["winners"] = [[r.index, r.distance] for r in eng.match(qpat[:b], qmsk[:b])]
+if kind == "match":
+    res = {f"match B={b}": wall(lambda: eng.match(qpat[:b], qmsk[:b])) for b in batches}
+    res["sharded (4, 1) B=1"] = wall(lambda: sharded.match(qpat[:1], qmsk[:1]))
+    res["winners"] = [[r.index, r.distance] for r in eng.match(qpat[:b], qmsk[:b])]
+else:
+    t = float(kind.split("=")[1])
+    res = {}
+    for b in batches:
+        res[f"find_under B={b}"] = wall(lambda: eng.find_under(qpat[:b], qmsk[:b], t))
+        res[f"min_fractions B={b}"] = wall(lambda: eng.min_fractions(qpat[:b], qmsk[:b]))
+    res["sharded (4, 1) find_under B=1"] = wall(lambda: sharded.find_under(qpat[:1], qmsk[:1], t))
+    res["sharded (4, 1) min_fractions B=1"] = wall(lambda: sharded.min_fractions(qpat[:1],
+                                                                                qmsk[:1]))
+    nd = eng.min_fractions(qpat[:b], qmsk[:b])
+    res["winners"] = [[[m.index, m.distance] for m in hits]
+                      for hits in eng.find_under(qpat[:b], qmsk[:b], t)]
+    res["winners"].append([int(nd[0].astype(np.int64).sum()), int(nd[1].astype(np.int64).sum())])
 print("REQUESTS " + json.dumps(res))
 """
 
 
-def request_times(root: str) -> dict:
+def request_times(root: str, kind: str) -> dict:
     """One subprocess with the package under ``root`` first on the path:
-    PlaintextEngine.match at REQUEST_BATCHES over PK_DB packed entries and the
-    sharded B = 1 request on 4 shards of this card, the median host wall of
-    REQUEST_REPS calls each (ms), and the winners."""
+    ``kind`` "match": PlaintextEngine.match at REQUEST_BATCHES over PK_DB
+    packed entries and the sharded B = 1 request on 4 shards of this card;
+    "audit": find_under at AUDIT_T and min_fractions likewise; the median
+    host wall of REQUEST_REPS calls each (ms), and the results (winners,
+    lists and spectrum sums)."""
     path = os.pathsep.join([root, os.environ.get("PYTHONPATH", "")])
     env = {**os.environ, "PYTHONPATH": path}
     proc = subprocess.run([sys.executable, "-c", REQUEST_CODE, str(PK_DB),
-                           json.dumps(REQUEST_BATCHES), str(REQUEST_REPS)], env=env, cwd=root,
+                           json.dumps(REQUEST_BATCHES), str(REQUEST_REPS),
+                           kind if kind == "match" else f"audit={AUDIT_T}"], env=env, cwd=root,
                           capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"requests under {root} failed ({proc.returncode}):\n"
@@ -458,11 +575,12 @@ def request_times(root: str) -> dict:
     return json.loads(line[len("REQUESTS "):])
 
 
-def request_turns(old_csrc: str, card: str) -> dict:
-    """The requests of the old package (the tree holding ``old_csrc``) and
-    this one in turns: old, new, new, old; each's median of its two turns."""
+def request_turns(old_csrc: str, card: str, kind: str = "match") -> dict:
+    """The requests of ``kind`` (request_times) of the old package (the tree
+    holding ``old_csrc``) and this one in turns: old, new, new, old; each's
+    median of its two turns."""
     old_root = os.path.dirname(os.path.dirname(os.path.abspath(old_csrc)))
-    runs = [request_times(r) for r in (old_root, REPO, REPO, old_root)]
+    runs = [request_times(r, kind) for r in (old_root, REPO, REPO, old_root)]
     keys = [k for k in runs[0] if k != "winners"]
     rec = {k: {"old_ms": float(np.median([runs[0][k], runs[3][k]])),
                "new_ms": float(np.median([runs[1][k], runs[2][k]]))} for k in keys}
@@ -471,7 +589,7 @@ def request_turns(old_csrc: str, card: str) -> dict:
         print(f"request {k} N={PK_DB}: old {rec[k]['old_ms']:.3f} ms, new "
               f"{rec[k]['new_ms']:.3f} ms (median of {REQUEST_REPS}, host wall; turns "
               f"{[round(r[k], 3) for r in runs]}) [{card}]")
-    print(f"requests: winners equal across the four runs {rec['equal']}")
+    print(f"requests ({kind}): results equal across the four runs {rec['equal']}")
     return rec
 
 
@@ -619,6 +737,11 @@ def main() -> int:
         ok &= res["pk_select"]["equal"]
         res["requests"] = request_turns(args.old, card)
         ok &= res["requests"]["equal"]
+    if "pk_fractions" in args.kernels:
+        res["pk_fractions"] = pk_fractions_turns(old, card)
+        ok &= res["pk_fractions"]["equal"]
+        res["audit_requests"] = request_turns(args.old, card, "audit")
+        ok &= res["audit_requests"]["equal"]
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

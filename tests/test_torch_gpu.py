@@ -87,10 +87,13 @@ def test_match_packed_small_b_kernel(cuda, b, chunk):
 def test_fractions_packed_small_b_kernel(cuda, b, chunk):
     """Ragged entry tiles at every chunk; the padded tail reports (0, 0)."""
     args = _packed_case(cuda, b, chunk)
-    before = tpm.fractions_packed_small_b.launches
+    before = tpm.fractions_packed_small_b.launches, tb1.launch_fractions.launches
     got = tpm.fractions_packed_small_b(*args)
     torch.cuda.synchronize()
-    assert tpm.fractions_packed_small_b.launches == before + len(tpm._launch_plan(b))
+    plan = tpm._launch_plan(b)
+    assert tpm.fractions_packed_small_b.launches == before[0] + len(plan)
+    # a group of one query launches the binary kernel, the others the int8 one
+    assert tb1.launch_fractions.launches == before[1] + sum(qg == 1 for *_, qg in plan)
     want = tpm.fractions_packed_small_b_reference(*args)
     assert got.dtype == torch.int16 and torch.equal(got, want)
     assert int(got[0, 0, 129]) == 0 and int(got[0, 0, 257]) == 0
@@ -538,6 +541,52 @@ def test_b1_select_refuses_other_queries(cuda):
                                                                            before[1] + 2)
     assert torch.equal(tpm.match_packed_small_b(q_enc[:4], q_mask[:4], *db),
                        tpm.match_packed_small_b_reference(q_enc[:4], q_mask[:4], *db))
+
+
+@pytest.mark.parametrize("n", PK_SELECT_N)
+def test_pk_fractions_kernel(cuda, n):
+    """fractions_packed_small_b at B = 1 (csrc/b1_packed.cu's
+    pk_fractions_kernel) against its plain version, bit for bit, at one
+    entry, the tile edges, the planted traps and past a wave of 132 blocks;
+    the query's source entry a and its duplicate report the same pair."""
+    pat, msk, qpat, qmsk, a = _pk_select_case(n)
+    q_enc, q_mask = prepare_query_planes(*(torch.from_numpy(x).to(cuda) for x in (qpat, qmsk)))
+    pat, msk = torch.from_numpy(pat).to(cuda), torch.from_numpy(msk).to(cuda)
+    before = tb1.launch_fractions.launches, tpm.fractions_packed_small_b.launches
+    got = tpm.fractions_packed_small_b(q_enc, q_mask, pat.view(1, n, 1600),
+                                       msk.view(1, n, 1600))
+    torch.cuda.synchronize()
+    assert (tb1.launch_fractions.launches,
+            tpm.fractions_packed_small_b.launches) == (before[0] + 1, before[1] + 1)
+    # the plain version's int8 product on the card needs a multiple of 8 entries
+    pad = -n % 8
+    want = tpm.fractions_packed_small_b_reference(
+        q_enc, q_mask, *(torch.nn.functional.pad(x, (0, 0, 0, pad)).view(1, n + pad, 1600)
+                         for x in (pat, msk)))[:, :, :n]
+    assert got.dtype == torch.int16 and got.shape == (2, 1, n) and torch.equal(got, want)
+    if n == 700:
+        assert got[0, 0, 129] == 0 and got[0, 0, 257] == 0 and not got[:, 0, 7].any()
+    elif n > 256:
+        assert torch.equal(got[:, 0, a], got[:, 0, a + 1]) and got[1, 0, a] > 0
+
+
+def test_pk_fractions_refuses_other_queries(cuda):
+    """fractions_packed_small_b's group of one raises on a query that is not
+    bit-valued (after the launch, which the counter shows), at B = 1 and at
+    B = 5; the group of 4 takes any int8 query."""
+    rng = np.random.default_rng(6)
+    pat, msk = (torch.from_numpy(rng.integers(0, 256, (512, 1600), dtype=np.uint8)).to(cuda)
+                for _ in range(2))
+    q_enc, q_mask = prepare_query_planes(pat[:5], msk[:5])
+    q_enc[1, 3, :100] = q_enc[4, 3, :100] = 2
+    db = (pat.view(1, 512, 1600), msk.view(1, 512, 1600))
+    before = tb1.launch_fractions.launches
+    for rows in (slice(4, 5), slice(0, 5)):
+        with pytest.raises(ValueError, match="bit-valued"):
+            tpm.fractions_packed_small_b(q_enc[rows], q_mask[rows], *db)
+    assert tb1.launch_fractions.launches == before + 2
+    assert torch.equal(tpm.fractions_packed_small_b(q_enc[:4], q_mask[:4], *db),
+                       tpm.fractions_packed_small_b_reference(q_enc[:4], q_mask[:4], *db))
 
 
 # pk_dot's tile edges (256 and 512 entries, one TMA box of 256 rows), a few

@@ -392,11 +392,18 @@ def _pallas_sites():
 def test_every_tpu_kernel_has_a_hopper_counterpart():
     """The guard: every file that reaches pl.pallas_call (18 sites) is named
     by a "replaces" of chip_smoke.py's kernels line, each such line a def in
-    its file, and PERF.md's kernel table has no row left to port."""
+    its file, kernel (c)'s two routes (the int8 kernel and, for a group of
+    one query, pk_fractions) each have an entry, and PERF.md's kernel table
+    has no row left to port."""
     sites = _pallas_sites()
     assert len(sites) == 18, sites
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         smoke = f.read()
+    for name, source in (("fractions_packed_small_b", "packed_fractions.cu"),
+                         ("pk_fractions", "b1_packed.cu")):
+        entry = smoke[smoke.index(f'{{"name": "{name}"'):][:300]
+        assert f"mpc_iris_tpu_torch/csrc/{source}" in entry, entry
+        assert '"replaces": "mpc_iris_tpu/ops/packed_match.py:227"' in entry, entry
     replaces = set(re.findall(r"((?:scripts|mpc_iris_tpu)/[\w/]+\.py):(\d+)", smoke))
     missing = {path for path, _ in sites} - {path for path, _ in replaces}
     assert not missing, f"TPU kernels with no Hopper counterpart in chip_smoke.py: {missing}"
