@@ -1,0 +1,6 @@
+"""``host_wait_ms`` in the cells of one query a request, which report the
+``.b1`` latency and rate."""
+
+from benchmark.manifest import metric_reader
+
+read = metric_reader("host_wait_ms").read

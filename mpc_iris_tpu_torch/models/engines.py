@@ -55,6 +55,14 @@ holding the u16 values' bit patterns (half the bytes of int32 to the host);
 the host edge views it as ``np.uint16``. There is no ``jit``: the reference's
 ``lax.scan`` is a Python loop, and torch's asynchronous launches keep
 ``pipelined_stream``'s dispatches in flight.
+
+Each stage of a request runs in a span of ``utils/profiling.py``, which
+costs a flag check unless a ``torch.profiler`` capture runs: roots
+``iris.match`` and ``iris.find_under``; ``iris.query_prep``,
+``iris.launch``, ``iris.wait`` (wherever the host blocks on the card),
+``iris.compact``, ``iris.settle``, and a stream's ``iris.dispatch``; at
+set-up ``iris.setup.db_load``. ``iris.audit.overflows`` counts the audits
+that took the full spectrum.
 """
 
 from __future__ import annotations
@@ -103,6 +111,8 @@ from mpc_iris_tpu_torch.ops.scan import (
 )
 from mpc_iris_tpu_torch.ops.select import select_chunk
 from mpc_iris_tpu_torch.ops.self_test import kernel_self_test
+from mpc_iris_tpu_torch.utils.profiling import annotate
+from mpc_iris_tpu_torch.utils.profiling import count as count_event
 
 # DB entries per scan step. Untuned. Chosen so that one step's transients stay
 # a few GB at B <= 1024 (the two int32 products are 8 * B * 32 * chunk bytes,
@@ -160,9 +170,10 @@ def match_scan_packed_auto(q_enc, q_mask, db_pat, db_msk) -> torch.Tensor:
     other B -> the packed scan through ``select_chunk``. Each wrapper runs
     its kernel on the card and its plain version on the CPU; all paths give
     identical results."""
-    if small_b_ok(q_enc.shape[0]):
-        return match_packed_small_b(q_enc, q_mask, db_pat, db_msk)
-    return _match_scan_packed(q_enc, q_mask, db_pat, db_msk, fused=True)
+    with annotate("iris.launch"):
+        if small_b_ok(q_enc.shape[0]):
+            return match_packed_small_b(q_enc, q_mask, db_pat, db_msk)
+        return _match_scan_packed(q_enc, q_mask, db_pat, db_msk, fused=True)
 
 
 def _plaintext_chunk_fractions(q_enc, q_mask, enc_c, mask_c):
@@ -184,9 +195,10 @@ def fractions_scan_packed_auto(q_enc, q_mask, db_pat, db_msk) -> torch.Tensor:
     ``engines.fractions_scan_packed_auto``): B in 1..8 -> the packed
     audit-spectrum kernel; any other B -> the packed spectrum scan. Identical
     int16 [2, B, N_padded] values either way."""
-    if small_b_ok(q_enc.shape[0]):
-        return fractions_packed_small_b(q_enc, q_mask, db_pat, db_msk)
-    return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk)
+    with annotate("iris.launch"):
+        if small_b_ok(q_enc.shape[0]):
+            return fractions_packed_small_b(q_enc, q_mask, db_pat, db_msk)
+        return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk)
 
 
 def _compact_under_device(nd: torch.Tensor, t_hi, k: int):
@@ -208,18 +220,22 @@ def _compact_under_device(nd: torch.Tensor, t_hi, k: int):
     reference's two-level block compaction works around serial scatter on
     the TPU and is not carried over, so the count is never forced past k.
     """
-    b = nd.shape[1]
-    t = torch.tensor(float(np.float32(t_hi)), dtype=torch.float32, device=nd.device)
-    mask = nd[0].float() < t * nd[1].float()
-    counts = mask.sum(dim=1, dtype=torch.int32)
-    slot = mask.cumsum(dim=1, dtype=torch.int32) - 1
-    q, e = (mask & (slot < k)).nonzero(as_tuple=True)
-    slot = slot[q, e]
-    idx = torch.full((b, k), -1, dtype=torch.int32, device=nd.device)
-    idx[q, slot] = e.to(torch.int32)
-    nd_out = nd.new_zeros((2, b, k))
-    nd_out[:, q, slot] = nd[:, q, e]
-    return torch.cat([counts[:, None], idx], dim=1), nd_out
+    with annotate("iris.compact"):
+        b = nd.shape[1]
+        with annotate("iris.wait"):  # a pageable upload waits for the card's queue
+            t = torch.tensor(float(np.float32(t_hi)), dtype=torch.float32, device=nd.device)
+        mask = nd[0].float() < t * nd[1].float()
+        counts = mask.sum(dim=1, dtype=torch.int32)
+        slot = mask.cumsum(dim=1, dtype=torch.int32) - 1
+        kept = mask & (slot < k)
+        with annotate("iris.wait"):  # nonzero waits for the card to size its output
+            q, e = kept.nonzero(as_tuple=True)
+        slot = slot[q, e]
+        idx = torch.full((b, k), -1, dtype=torch.int32, device=nd.device)
+        idx[q, slot] = e.to(torch.int32)
+        nd_out = nd.new_zeros((2, b, k))
+        nd_out[:, q, slot] = nd[:, q, e]
+        return torch.cat([counts[:, None], idx], dim=1), nd_out
 
 
 # --------------------------------------------------------------------- results
@@ -238,11 +254,12 @@ class MatchResult:
 
 def _results_from_triples(n, d, i) -> list[MatchResult]:
     """Copy of ``mpc_iris_tpu.models.engines._results_from_triples``."""
-    n, d, i = np.asarray(n), np.asarray(d), np.asarray(i)
-    return [
-        MatchResult(int(ii), fraction_to_f64(int(nn), int(dd)), int(nn), int(dd))
-        for nn, dd, ii in zip(n, d, i)
-    ]
+    with annotate("iris.settle"):
+        n, d, i = np.asarray(n), np.asarray(d), np.asarray(i)
+        return [
+            MatchResult(int(ii), fraction_to_f64(int(nn), int(dd)), int(nn), int(dd))
+            for nn, dd, ii in zip(n, d, i)
+        ]
 
 
 class AuditLimitExceeded(RuntimeError):
@@ -287,21 +304,22 @@ def settle_compacted_under(meta, nd_c, k: int, count: int, threshold: float,
     query's candidates overflowed the k slots (the caller then takes the
     full spectrum). ``meta``, ``nd_c``: host arrays of
     :func:`_compact_under_device`."""
-    meta = np.asarray(meta)
-    counts = meta[:, 0]
-    if (counts > k).any():
-        return None
-    nd_c = np.asarray(nd_c)
-    results = []
-    for q in range(meta.shape[0]):
-        c = int(counts[q])
-        idx_g = meta[q, 1:1 + c]
-        keep = idx_g < count  # defensive: padded rows (d == 0) are never candidates
-        results.append(_match_list(*hits_under_from_fractions(
-            nd_c[0, q, :c][keep].astype(np.int64),
-            nd_c[1, q, :c][keep].astype(np.int64),
-            threshold, limit=limit, indices=idx_g[keep])))
-    return results
+    with annotate("iris.settle"):
+        meta = np.asarray(meta)
+        counts = meta[:, 0]
+        if (counts > k).any():
+            return None
+        nd_c = np.asarray(nd_c)
+        results = []
+        for q in range(meta.shape[0]):
+            c = int(counts[q])
+            idx_g = meta[q, 1:1 + c]
+            keep = idx_g < count  # defensive: padded rows (d == 0) are never candidates
+            results.append(_match_list(*hits_under_from_fractions(
+                nd_c[0, q, :c][keep].astype(np.int64),
+                nd_c[1, q, :c][keep].astype(np.int64),
+                threshold, limit=limit, indices=idx_g[keep])))
+        return results
 
 
 def orchestrate_find_under(count: int, b: int, threshold: float, limit, compact_k,
@@ -331,6 +349,7 @@ def orchestrate_find_under(count: int, b: int, threshold: float, limit, compact_
         return find_under_from_fractions(full_nd_fn(), t, limit=limit)
     meta, nd_c = compact_fn(t_hi, k)
     compacted = settle_compacted_under(meta, nd_c, k, count, t, limit=limit)
+    count_event("iris.audit.overflows", int(compacted is None))
     if compacted is None:
         # candidates overflowed the compact buffer: identical results via
         # the full spectrum
@@ -345,9 +364,10 @@ def find_under_from_fractions(nd: np.ndarray, threshold: float,
     per-entry minimal (numerator, denominator) pairs -> per query every
     entry exactly under the threshold, ascending by f64 distance
     (index-ordered within equal-f64 ties)."""
-    return [_match_list(*hits_under_from_fractions(nd[0, q], nd[1, q], threshold,
-                                                   limit=limit))
-            for q in range(nd.shape[1])]
+    with annotate("iris.settle"):
+        return [_match_list(*hits_under_from_fractions(nd[0, q], nd[1, q], threshold,
+                                                       limit=limit))
+                for q in range(nd.shape[1])]
 
 
 # --------------------------------------------------------------------- engine
@@ -401,31 +421,36 @@ class PlaintextEngine:
         chunk = _engine_chunk(chunk, n, self.device)
         self.storage = storage
         self.chunk = chunk
-        pat_c, self.count = _pad_chunks(
-            np.ascontiguousarray(patterns_packed, dtype=np.uint8), chunk)
-        msk_c, _ = _pad_chunks(np.ascontiguousarray(masks_packed, dtype=np.uint8), chunk)
-        db_pat = torch.from_numpy(np.require(pat_c, requirements="CW")).to(self.device)
-        db_msk = torch.from_numpy(np.require(msk_c, requirements="CW")).to(self.device)
         self.db_pat = self.db_msk = self.db_enc = self.db_mask = None
-        if storage == "packed":
-            self.db_pat, self.db_msk = db_pat, db_msk
-        else:
-            # unpack on the device, one chunk at a time
-            shape = (db_pat.shape[0], chunk, BITS)
-            self.db_enc = torch.empty(shape, dtype=torch.int8, device=self.device)
-            self.db_mask = torch.empty(shape, dtype=torch.int8, device=self.device)
-            for c in range(shape[0]):
-                self.db_enc[c], self.db_mask[c] = _unpack_encode_chunk(db_pat[c], db_msk[c])
+        with annotate("iris.setup.db_load"):
+            pat_c, self.count = _pad_chunks(
+                np.ascontiguousarray(patterns_packed, dtype=np.uint8), chunk)
+            msk_c, _ = _pad_chunks(np.ascontiguousarray(masks_packed, dtype=np.uint8), chunk)
+            db_pat = torch.from_numpy(np.require(pat_c, requirements="CW")).to(self.device)
+            db_msk = torch.from_numpy(np.require(msk_c, requirements="CW")).to(self.device)
+            if storage == "packed":
+                self.db_pat, self.db_msk = db_pat, db_msk
+            else:
+                # unpack on the device, one chunk at a time
+                shape = (db_pat.shape[0], chunk, BITS)
+                self.db_enc = torch.empty(shape, dtype=torch.int8, device=self.device)
+                self.db_mask = torch.empty(shape, dtype=torch.int8, device=self.device)
+                for c in range(shape[0]):
+                    self.db_enc[c], self.db_mask[c] = _unpack_encode_chunk(db_pat[c], db_msk[c])
 
     def _queries(self, patterns_packed, masks_packed):
-        return prepare_query_planes(_put_u8(patterns_packed, self.device),
-                                    _put_u8(masks_packed, self.device))
+        with annotate("iris.query_prep"):
+            return prepare_query_planes(_put_u8(patterns_packed, self.device),
+                                        _put_u8(masks_packed, self.device))
 
     def match(self, patterns_packed, masks_packed) -> list[MatchResult]:
         """Min-distance entry per query. uint8 [B, 1600] packed query planes."""
-        q_enc, q_mask = self._queries(patterns_packed, masks_packed)
-        n, d, i = self.match_arrays(q_enc, q_mask).cpu().numpy()
-        return _results_from_triples(n, d, i)
+        with annotate("iris.match", request=True):
+            q_enc, q_mask = self._queries(patterns_packed, masks_packed)
+            out = self.match_arrays(q_enc, q_mask)
+            with annotate("iris.wait"):
+                n, d, i = out.cpu().numpy()
+            return _results_from_triples(n, d, i)
 
     def match_arrays(self, q_enc, q_mask) -> torch.Tensor:
         """Prepared query planes -> int32 [3, B] stacked (numerator,
@@ -479,7 +504,9 @@ class PlaintextEngine:
         return _fractions_scan(q_enc, q_mask, self.db_enc, self.db_mask)
 
     def _host_spectrum(self, nd: torch.Tensor) -> np.ndarray:
-        return nd[:, :, : self.count].cpu().numpy().astype(np.uint16)
+        with annotate("iris.wait"):
+            nd = nd[:, :, : self.count].cpu()
+        return nd.numpy().astype(np.uint16)
 
     def min_fractions(self, patterns_packed, masks_packed) -> np.ndarray:
         """Per-entry minimal exact fractions: uint16 [2, B, N], the
@@ -510,17 +537,19 @@ class PlaintextEngine:
         ``limit``: raise :class:`AuditLimitExceeded` when a query matches
         more than this many entries.
         """
-        q_enc, q_mask = self._queries(patterns_packed, masks_packed)
-        self._guard_spectrum(q_enc.shape[0])
-        spectrum = functools.cache(lambda: self._spectrum(q_enc, q_mask))
+        with annotate("iris.find_under", request=True):
+            q_enc, q_mask = self._queries(patterns_packed, masks_packed)
+            self._guard_spectrum(q_enc.shape[0])
+            spectrum = functools.cache(lambda: self._spectrum(q_enc, q_mask))
 
-        def compact(t_hi, k):
-            meta, nd_c = _compact_under_device(spectrum(), t_hi, k)
-            return meta.cpu().numpy(), nd_c.cpu().numpy()
+            def compact(t_hi, k):
+                meta, nd_c = _compact_under_device(spectrum(), t_hi, k)
+                with annotate("iris.wait"):
+                    return meta.cpu().numpy(), nd_c.cpu().numpy()
 
-        return orchestrate_find_under(
-            self.count, q_enc.shape[0], threshold, limit, compact_k,
-            lambda: self._host_spectrum(spectrum()), compact)
+            return orchestrate_find_under(
+                self.count, q_enc.shape[0], threshold, limit, compact_k,
+                lambda: self._host_spectrum(spectrum()), compact)
 
 
 # --------------------------------------------------------------------- share path: per chunk
@@ -631,18 +660,21 @@ def pipelined_stream(dispatch, num_chunks: int, count: int, chunk_entries: int,
     queued on the device while the host takes the oldest. The final chunk is
     trimmed to ``count`` total entries.
     """
-    pending = deque()
-    for c in range(min(depth, num_chunks)):
-        pending.append((c, _fetch(dispatch(c))))
+    def launch(c):
+        with annotate("iris.dispatch"):
+            return c, _fetch(dispatch(c))
+
+    pending = deque(launch(c) for c in range(min(depth, num_chunks)))
     nxt = depth
     while pending:
         c, (host, done) = pending.popleft()
         if nxt < num_chunks:
-            pending.append((nxt, _fetch(dispatch(nxt))))
+            pending.append(launch(nxt))
             nxt += 1
-        if done is not None:
-            done.synchronize()
-        host = host.contiguous().numpy().view(np.uint16)
+        with annotate("iris.wait"):  # the host takes chunk c's block
+            if done is not None:
+                done.synchronize()
+            host = host.contiguous().numpy().view(np.uint16)
         start = c * chunk_entries
         end = min(count, start + chunk_entries)
         if entry_axis == 0:
@@ -739,8 +771,9 @@ class ShareEngine:
         self._prefetch: dict[int, tuple[int, object]] = {}
         self._prefetch_lock = threading.Lock()
         self._prefetch_epoch = 0
-        self._resident = [_shares_reformat(self._put(self._chunk_u16(c)))
-                          for c in range(self._n_resident)]
+        with annotate("iris.setup.db_load"):
+            self._resident = [_shares_reformat(self._put(self._chunk_u16(c)))
+                              for c in range(self._n_resident)]
         if self._n_resident < num_chunks:
             print(
                 f"ShareEngine: {self._n_resident}/{num_chunks} chunks resident "
@@ -896,9 +929,10 @@ class ShareEngine:
         return q_enc
 
     def _queries(self, patterns_packed, masks_packed) -> torch.Tensor:
-        q_enc, _ = prepare_query_planes(_put_u8(patterns_packed, self.device),
-                                        _put_u8(masks_packed, self.device))
-        return self._q_transform(q_enc)
+        with annotate("iris.query_prep"):
+            q_enc, _ = prepare_query_planes(_put_u8(patterns_packed, self.device),
+                                            _put_u8(masks_packed, self.device))
+            return self._q_transform(q_enc)
 
     def dots(self, patterns_packed, masks_packed) -> np.ndarray:
         """Full reply tensor uint16 [B, N, 31] in reference wire order."""
@@ -960,7 +994,8 @@ class KeyedShareEngine:
             hbm_budget = max(0, default_hbm_budget(self.device) - workspace)
         self._max_resident = max(0, int(hbm_budget // (2 * BITS * self.chunk)))
         self._n_resident = min(self.num_chunks(), self._max_resident)
-        self._resident = [self._regenerate(c) for c in range(self._n_resident)]
+        with annotate("iris.setup.db_load"):
+            self._resident = [self._regenerate(c) for c in range(self._n_resident)]
 
     def _regenerate(self, c: int) -> torch.Tensor:
         return _keyed_planes_chunk(self._kw, self._sid, c * self.chunk, self.chunk)

@@ -19,6 +19,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from mpc_iris_tpu_torch.utils.profiling import annotate
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -114,7 +116,8 @@ def build() -> Build:
     global _built
     with _lock:
         if _built is None:
-            _built = _compile()
+            with annotate("iris.setup.kernel_build"):
+                _built = _compile()
         return _built
 
 

@@ -57,6 +57,7 @@ from mpc_iris_tpu_torch.ops.decode import fraction_argmin
 from mpc_iris_tpu_torch.ops.dot import dot_bits_batch
 from mpc_iris_tpu_torch.ops.scan import prepare_query_planes
 from mpc_iris_tpu_torch.ops.select import N_ROT_PAD, ROT_BITREV, select_chunk_reference
+from mpc_iris_tpu_torch.utils.profiling import annotate
 
 PLANE = BITS_BYTES        # packed bytes an entry and plane: one K slab of 1,600
 _REFERENCE_ENTRIES = 16_384  # DB entries a piece of the plain versions unpack
@@ -216,7 +217,8 @@ def require_bit_valued(name: str, check) -> None:
     bit-valued."""
     flag, done = check
     if done is not None:
-        done.synchronize()
+        with annotate("iris.wait"):
+            done.synchronize()
     if not bool(flag):
         raise ValueError(f"{name}: the query must be bit-valued (qm in {{0, 1}}, qe in "
                          "{-qm, qm}), as prep_query and prepare_query_planes give")

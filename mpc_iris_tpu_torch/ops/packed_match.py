@@ -45,6 +45,7 @@ from mpc_iris_tpu_torch.ops.scan import (
     prepare_query_planes,
 )
 from mpc_iris_tpu_torch.ops.select import N_ROT_PAD
+from mpc_iris_tpu_torch.utils.profiling import annotate
 
 # Dispatch boundary of the packed small-batch kernel. It keeps the reference's
 # 1..8 so both packages route the same batches; the reference's value is a TPU
@@ -200,8 +201,9 @@ def match_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
         for q0, nq, qg in _launch_plan(b):
             qe, qm = q_enc[q0:q0 + nq], q_mask[q0:q0 + nq]
             if qg == 1:
-                q = _one_query_operand(qe, qm)
-                checks.append(start_query_check(qe, qm))
+                with annotate("iris.query_prep"):
+                    q = _one_query_operand(qe, qm)
+                    checks.append(start_query_check(qe, qm))
                 launch_select("match_packed_small_b", lib, q, db_pat, db_msk, n_entries,
                               out[:, q0:], b)
             else:
@@ -222,7 +224,8 @@ def _launch_int8_group(lib, q_enc, q_mask, db_pat, db_msk, n_entries: int, qg: i
     groups of ``qg`` (2 or 4; the last group padded by zero queries), the
     winners into ``out``'s first columns, rows ``out_stride`` apart."""
     nq = q_enc.shape[0]
-    qt = _query_tiles(q_enc, q_mask, qg)
+    with annotate("iris.query_prep"):
+        qt = _query_tiles(q_enc, q_mask, qg)
     n_tiles = -(-n_entries // lib.packed_tile_entries(qg))
     part = torch.empty(3 * nq * n_tiles, dtype=torch.int32, device=q_enc.device)
     check_launch("match_packed_small_b", lib.match_packed_small_b_launch(
@@ -307,12 +310,14 @@ def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
         for q0, nq, qg in _launch_plan(b):
             qe, qm = q_enc[q0:q0 + nq], q_mask[q0:q0 + nq]
             if qg == 1:
-                q = _one_query_operand(qe, qm)
-                checks.append(start_query_check(qe, qm))
+                with annotate("iris.query_prep"):
+                    q = _one_query_operand(qe, qm)
+                    checks.append(start_query_check(qe, qm))
                 launch_fractions("fractions_packed_small_b", lib, q, db_pat, db_msk, n_entries,
                                  out[0, q0], b * n_entries)
             else:
-                qt = _query_tiles(qe, qm, qg)
+                with annotate("iris.query_prep"):
+                    qt = _query_tiles(qe, qm, qg)
                 check_launch("fractions_packed_small_b", lib.fractions_packed_small_b_launch(
                     qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
                     out[0, q0].data_ptr(), b * n_entries, stream))

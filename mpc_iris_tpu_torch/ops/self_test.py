@@ -15,6 +15,7 @@ from mpc_iris_tpu_torch.ops.packed_match import (
     check_match_packed_small_b,
 )
 from mpc_iris_tpu_torch.ops.select import check_select_chunk
+from mpc_iris_tpu_torch.utils.profiling import annotate
 
 _self_tested: set[str] = set()
 
@@ -30,6 +31,12 @@ def kernel_self_test(device) -> None:
     device = torch.device(device)
     if str(device) in _self_tested:
         return
+    with annotate("iris.setup.kernel_self_test"):
+        _self_test(device)
+    _self_tested.add(str(device))
+
+
+def _self_test(device: torch.device) -> None:
     rng = np.random.default_rng(0xC0DE)
     q = rng.integers(-1, 2, size=(32, BITS)).astype(np.int8)
     m = rng.integers(0, 2, size=(8, BITS)).astype(np.int8)
@@ -57,4 +64,3 @@ def kernel_self_test(device) -> None:
         check_select_chunk(device)
         check_match_packed_small_b(device)
         check_fractions_packed_small_b(device)
-    _self_tested.add(str(device))

@@ -1,24 +1,17 @@
 """Criterion-grade timing statistics for the benchmark suites (copy of
-``mpc_iris_tpu/utils/stats.py``).
+``mpc_iris_tpu/utils/stats.py``, without its history ledger, which nothing
+of the port reads).
 
 The reference benches through criterion (Cargo.toml:41-46, src/arch/mod.rs:22-72),
 which reports a distribution — sampling, outlier classification, dispersion —
-not a single best time: robust summary statistics (median +/- MAD), Tukey-fence
-outlier rejection, and round-over-round regression deltas against a history
-ledger, so a +/-2% drift is visible instead of hiding inside best-of-3 noise.
-
-The one difference from the JAX package: the port's ledger is a file of its
-own, ``docs/BENCH_HISTORY_torch.jsonl``. ``docs/BENCH_HISTORY.jsonl`` holds the
-JAX package's TPU numbers, and a delta between the two devices would mean
-nothing.
+not a single best time: robust summary statistics (median +/- MAD) and
+Tukey-fence outlier rejection, so a +/-2% drift is visible instead of hiding
+inside best-of-3 noise.
 """
 
 from __future__ import annotations
 
-import json
 import math
-import os
-import time
 
 
 def summarize_timings(samples) -> dict:
@@ -78,57 +71,3 @@ def format_summary(s: dict, unit: str = "s", scale: float = 1.0) -> str:
         f"(n={s['n']}, min {s['min'] * scale:.4g}, "
         f"{s['outliers_rejected']} outliers)"
     )
-
-
-# --------------------------------------------------------------- history ledger
-
-HISTORY_PATH = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "docs", "BENCH_HISTORY_torch.jsonl")
-
-
-def load_history(path: str | None = None) -> list[dict]:
-    path = path or HISTORY_PATH
-    entries = []
-    try:
-        with open(path) as f:
-            for line in f:
-                line = line.strip()
-                if line:
-                    entries.append(json.loads(line))
-    except FileNotFoundError:
-        pass
-    return entries
-
-
-def append_history(entry: dict, path: str | None = None) -> dict | None:
-    """Append one bench result to the regression ledger and return the most
-    recent PRIOR entry with the same ``key`` (for a delta report), or None.
-
-    Set ``MPC_IRIS_NO_BENCH_HISTORY=1`` to disable (e.g. experiments that
-    should not pollute the round-over-round record)."""
-    if os.environ.get("MPC_IRIS_NO_BENCH_HISTORY"):
-        return None
-    path = path or HISTORY_PATH
-    prev = None
-    for e in load_history(path):
-        if e.get("key") == entry.get("key"):
-            prev = e
-    entry = dict(entry)
-    entry.setdefault("ts", time.time())
-    try:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "a") as f:
-            f.write(json.dumps(entry, sort_keys=True) + "\n")
-    except OSError:
-        return prev
-    return prev
-
-
-def delta_line(entry: dict, prev: dict | None) -> str | None:
-    """``vs last (2026-08-19): +1.3%`` — None when no prior entry exists."""
-    if not prev or not prev.get("value"):
-        return None
-    delta = (entry["value"] - prev["value"]) / prev["value"] * 100.0
-    when = prev.get("date") or time.strftime(
-        "%Y-%m-%d", time.gmtime(prev.get("ts", 0)))
-    return f"vs last recorded ({when}): {delta:+.1f}%"

@@ -41,6 +41,16 @@ RENAMED = {
         None, None,
         "the XLA compile cache has no torch counterpart; ops/_build.py caches "
         "the nvcc output by a hash of the sources"),
+    **{("utils/profiling.py", name): (
+        None, None,
+        "host stage timers nothing called; the port's spans and counters are "
+        "utils/profiling.py's annotate, count and snapshot")
+       for name in ("StageTimers", "StageTimers.stage", "StageTimers.report")},
+    **{("utils/stats.py", name): (
+        None, None,
+        "the bench-history ledger nothing read; the benchmark ledger keeps "
+        "the port's numbers")
+       for name in ("load_history", "append_history", "delta_line")},
 }
 
 
