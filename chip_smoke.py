@@ -6,7 +6,9 @@ NVIDIA GPU, at full size, and check them.
 - builds the CUDA kernels from mpc_iris_tpu_torch/csrc with nvcc (sm_90a);
 - serves match requests through ``PlaintextEngine.match``: B = 1 and 8 on a
   1,048,576-entry packed DB (kernel match_packed_small_b), B = 13 and 128 on
-  the same DB and B = 128 on a 262,144-entry dense DB (kernel select_chunk);
+  the same DB (kernels packed_gemm, both products of a packed chunk, and
+  select_chunk) and B = 128 on a 262,144-entry dense DB (kernel
+  select_chunk);
 - holds every winner against the plain path on the card, bit for bit; the
   planted self-matches (rotated copies of DB entries) at distance 0.0, and a
   duplicated entry at its lower index; and ``distances()`` against the scalar
@@ -222,6 +224,7 @@ from mpc_iris_tpu_torch.ops.decode import (
 from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, planes_to_shares
 from mpc_iris_tpu_torch.ops.encode import encode_template, share_split_device
 from mpc_iris_tpu_torch.ops.gemm import int8_gemm, int8_gemm_reference
+from mpc_iris_tpu_torch.ops.packed_gemm import packed_gemm, packed_gemm_reference, packed_query
 from mpc_iris_tpu_torch.ops.keyed_dot import (
     VARIANTS,
     keyed_pass_checksum,
@@ -2048,6 +2051,7 @@ def main() -> int:
             kernel = next((k for k in ("select_part_kernel", "packed_match_kernel",
                                        "packed_fractions_kernel", "fold_parts_kernel",
                                        "chacha_planes_kernel", "int8_gemm_kernel",
+                                       "packed_gemm_kernel",
                                        "keyed_share_dot_kernel", "pk_dot_kernel",
                                        "pk_select_kernel", "pk_fractions_kernel",
                                        "tile_select_kernel",
@@ -2056,7 +2060,7 @@ def main() -> int:
             config = re.findall(r"L[ib](\d+)E", line)
             if config:  # the template arguments
                 kernel += f"<{', '.join(config)}>"
-        elif "Used" in line or "spill stores" in line or "C7512" in line:
+        elif "Used" in line or "spill stores" in line or "C7512" in line or "C7513" in line:
             print(f"  ptxas {kernel}: {line.split(':', 1)[-1].strip()}")
 
     rng = np.random.default_rng(args.seed)
@@ -2083,14 +2087,15 @@ def main() -> int:
                 ("packed", packed, 13, qpat, qmsk), ("packed", packed, 128, qpat, qmsk),
                 ("dense", dense, 128, dqpat, dqmsk)]
 
-    counted = (select_chunk, match_packed_small_b, fractions_packed_small_b)
+    counted = (select_chunk, match_packed_small_b, fractions_packed_small_b, packed_gemm)
 
     # ---- the match path, counted
     for fn in counted:
         fn.launches = 0
     served = [eng.match(qp[:bb], qm[:bb]) for _, eng, bb, qp, qm in requests]
     launches = {"select_chunk": select_chunk.launches,
-                "match_packed_small_b": match_packed_small_b.launches}
+                "match_packed_small_b": match_packed_small_b.launches,
+                "packed_gemm": packed_gemm.launches}
     print(f"launches in the main-path run: {json.dumps(launches)}")
     check(all(v > 0 for v in launches.values()), "every kernel launched on the main path")
 
@@ -2247,6 +2252,40 @@ def main() -> int:
                     "launches": launches["select_chunk"], "max_abs_err": err,
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None})
+
+    # (e) packed_gemm: both products of one packed chunk at the scan's B = 128
+    # shape, [4,096 x 12,800] query rows against the chunk's packed planes,
+    # beside its plain version (the chunk unpacked, two int8 products) and the
+    # same two library calls, torch._int_mm, which the scan no longer makes
+    qe128, qm128 = _fused_rows(q_enc[:128]), _fused_rows(q_mask[:128])
+    query = packed_query(qe128, qm128)
+    pat0, msk0 = packed.db_pat[0], packed.db_msk[0]
+    got = torch.stack(packed_gemm(query, pat0, msk0))
+    err = int((got - torch.stack(packed_gemm_reference(query, pat0, msk0))).abs().max())
+    del got
+    check(err == 0, "packed_gemm B=128: kernel equals plain version")
+
+    def unpack_int_mm():
+        enc, m = _unpack_encode_chunk(pat0, msk0)
+        return torch._int_mm(qe128, enc.t()), torch._int_mm(qm128, m.t())
+
+    k_ms = cuda_ms(lambda: packed_gemm(query, pat0, msk0), 20)
+    p_ms = cuda_ms(lambda: packed_gemm_reference(query, pat0, msk0), 5)
+    l_ms = cuda_ms(unpack_int_mm, 5)
+    m, c = qe128.shape[0], packed.chunk
+    # reads both products' query rows and the packed chunk once, writes the
+    # two int32 products; 2 products x 2 ops a MAC
+    bound_ms, bound_by = bound(2 * m * BITS + 2 * c * BITS_BYTES + 2 * 4 * m * c,
+                               2 * 2 * m * c * BITS, INT8_OPS)
+    print(f"time kernel packed_gemm [{m}, {BITS}] x {c} packed entries: {k_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, unpack + 2 torch._int_mm {l_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / k_ms:.1%} of it [{card}]")
+    kernels.append({"name": "packed_gemm", "route": "cuda",
+                    "source": "mpc_iris_tpu_torch/csrc/packed_gemm.cu",
+                    "replaces": "mpc_iris_tpu/models/engines.py:227",
+                    "launches": launches["packed_gemm"], "max_abs_err": err,
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": l_ms})
 
     # (b) match_packed_small_b over the whole packed DB at batches on both
     # sides of the dispatch boundary; beside it the packed scan through (a),

@@ -7,10 +7,11 @@ The request path of ``PlaintextEngine.match``:
    queries to int8 [B, 31, K].
 2. Packed storage, :func:`match_scan_packed_auto`: B in 1..8 goes to the
    packed small-batch kernel (ops/packed_match.py); any other B to
-   ``_match_scan_packed``, which per chunk unpacks and encodes the DB, takes
-   the two int8 products (numerator dot and denominator) and selects the
-   chunk winner with the selection kernel (ops/select.py). Dense storage,
-   :func:`match_scan_auto`, skips the unpack.
+   ``_match_scan_packed``, which per chunk takes the two int8 products
+   (numerator dot and denominator) straight from the packed chunk in one
+   ``packed_gemm`` (ops/packed_gemm.py) and selects the chunk winner with
+   the selection kernel (ops/select.py). Dense storage,
+   :func:`match_scan_auto`, takes the products of ``dot_bits_batch``.
 3. The host turns each winning integer pair into an f64.
 
 The threshold audit, ``PlaintextEngine.min_fractions`` and ``find_under``:
@@ -26,9 +27,9 @@ The threshold audit, ``PlaintextEngine.min_fractions`` and ``find_under``:
    query has more than k candidates, decodes the whole spectrum
    (:func:`find_under_from_fractions`).
 
-``prepare_query_planes``, ``_unpack_encode_chunk``, ``_match_scan_packed`` and
-the spectrum scans live in ops/scan.py, below the packed kernels' plain
-versions, and are re-exported here. The DB is [C, c, ...] on the device and
+``prepare_query_planes``, ``_match_scan_packed`` and the spectrum scans live
+in ops/scan.py, below the packed kernels' plain versions, and are
+re-exported here, as is ops/packed_gemm.py's ``_unpack_encode_chunk``. The DB is [C, c, ...] on the device and
 padded rows are all zero (mask 0 -> den 0 -> never a valid distance). On the
 card every selection goes through a CUDA kernel; on the CPU the kernel
 wrappers run their plain versions.
@@ -100,11 +101,13 @@ from mpc_iris_tpu_torch.ops.packed_match import (
     small_b_ok,
 )
 from mpc_iris_tpu_torch.ops.scan import (
+    _chunk_products,
     _fractions_scan,
     _fractions_scan_packed,
     _fused_rows,
     _match_scan_packed,
     _plain_select,
+    _query_rows,
     _scan,
     _unpack_encode_chunk,
     prepare_query_planes,
@@ -141,19 +144,17 @@ def _pad_chunks(arr: np.ndarray, chunk: int, pad_value=0):
 def _match_scan(q_enc, q_mask, db_enc, db_mask) -> torch.Tensor:
     """Plain min-distance search over a dense DB: int8 [C, c, K] encodings
     and masks. Returns int32 [3, B] (numerator, denominator, index)."""
-    b = q_enc.shape[0]
-    return _scan(b, q_enc.reshape(b * N_ROTATIONS, BITS),
-                 q_mask.reshape(b * N_ROTATIONS, BITS),
-                 db_enc.shape[0], db_enc.shape[1],
-                 lambda c: (db_enc[c], db_mask[c]), _plain_select)
+    products = _chunk_products(_query_rows(q_enc), _query_rows(q_mask), db_enc.shape[0],
+                               lambda c: (db_enc[c], db_mask[c]))
+    return _scan(q_enc.shape[0], products, db_enc.shape[1], _plain_select, q_enc.device)
 
 
 def _match_scan_fused(q_enc, q_mask, db_enc, db_mask) -> torch.Tensor:
     """:func:`_match_scan` with each chunk's selection in ``select_chunk``;
     identical results."""
-    return _scan(q_enc.shape[0], _fused_rows(q_enc), _fused_rows(q_mask),
-                 db_enc.shape[0], db_enc.shape[1],
-                 lambda c: (db_enc[c], db_mask[c]), select_chunk)
+    products = _chunk_products(_fused_rows(q_enc), _fused_rows(q_mask), db_enc.shape[0],
+                               lambda c: (db_enc[c], db_mask[c]))
+    return _scan(q_enc.shape[0], products, db_enc.shape[1], select_chunk, q_enc.device)
 
 
 def match_scan_auto(q_enc, q_mask, db_enc, db_mask) -> torch.Tensor:
@@ -167,9 +168,10 @@ def match_scan_auto(q_enc, q_mask, db_enc, db_mask) -> torch.Tensor:
 
 def match_scan_packed_auto(q_enc, q_mask, db_pat, db_msk) -> torch.Tensor:
     """Packed dispatch: B in 1..8 -> the packed small-batch kernel; any
-    other B -> the packed scan through ``select_chunk``. Each wrapper runs
-    its kernel on the card and its plain version on the CPU; all paths give
-    identical results."""
+    other B -> the packed scan, each chunk's products in one ``packed_gemm``
+    and its selection in ``select_chunk``. Each wrapper runs its kernel on
+    the card and its plain version on the CPU; all paths give identical
+    results."""
     with annotate("iris.launch"):
         if small_b_ok(q_enc.shape[0]):
             return match_packed_small_b(q_enc, q_mask, db_pat, db_msk)
@@ -193,12 +195,13 @@ def _plaintext_chunk_fractions(q_enc, q_mask, enc_c, mask_c):
 def fractions_scan_packed_auto(q_enc, q_mask, db_pat, db_msk) -> torch.Tensor:
     """Audit-spectrum dispatch for packed storage (mirrors
     ``engines.fractions_scan_packed_auto``): B in 1..8 -> the packed
-    audit-spectrum kernel; any other B -> the packed spectrum scan. Identical
-    int16 [2, B, N_padded] values either way."""
+    audit-spectrum kernel; any other B -> the packed spectrum scan, each
+    chunk's products in one ``packed_gemm``. Identical int16 [2, B,
+    N_padded] values either way."""
     with annotate("iris.launch"):
         if small_b_ok(q_enc.shape[0]):
             return fractions_packed_small_b(q_enc, q_mask, db_pat, db_msk)
-        return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk)
+        return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk, kernel=True)
 
 
 def _compact_under_device(nd: torch.Tensor, t_hi, k: int):

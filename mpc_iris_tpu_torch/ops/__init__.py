@@ -11,9 +11,13 @@ audit and MPC paths (counterpart of ``mpc_iris_tpu/ops``).
 - ``chacha``: ChaCha20 share-stream regeneration, kernel
   ``share_planes_kernel`` (csrc/chacha_planes.cu) and its plain version
 - ``select``: kernel ``select_chunk`` (csrc/select_chunk.cu) and its plain version
-- ``scan``: query planes, per-chunk unpack, the chunk scan and the fraction
-  spectrum scans; with the plain selection the packed scan is the plain
-  packed match, and the packed spectrum scan the plain packed spectrum
+- ``scan``: query planes, the chunk scan and the fraction spectrum scans;
+  with the plain selection the packed scan is the plain packed match, and
+  the packed spectrum scan the plain packed spectrum
+- ``packed_gemm``: kernel ``packed_gemm`` (csrc/packed_gemm.cu), both int8
+  products of a packed DB chunk expanded in the kernel, the packed scans'
+  products past the small batches; its plain version, the per-chunk unpack
+  and two ``dot_bits_batch``
 - ``packed_match``: kernels ``match_packed_small_b`` (csrc/packed_match.cu;
   a group of one query csrc/b1_packed.cu's ``pk_select_kernel``) and
   ``fractions_packed_small_b`` (csrc/packed_fractions.cu; a group of one

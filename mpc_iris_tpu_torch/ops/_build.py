@@ -49,6 +49,9 @@ _SIGNATURES = {
     "chacha_planes_launch": (
         [_P, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _P, _P, _P],
         ctypes.c_int),
+    "packed_gemm_launch": (
+        [ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P, _P],
+        ctypes.c_int),
     "int8_gemm_launch": (
         [ctypes.c_int, ctypes.c_int, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P],
         ctypes.c_int),

@@ -39,8 +39,10 @@ from mpc_iris_tpu_torch.ops.b1_packed import (
     start_query_check,
 )
 from mpc_iris_tpu_torch.ops.encode import pack_bits
+from mpc_iris_tpu_torch.ops.packed_gemm import packed_gemm, packed_gemm_reference, packed_query
 from mpc_iris_tpu_torch.ops.scan import (
     _fractions_scan_packed,
+    _fused_rows,
     _match_scan_packed,
     prepare_query_planes,
 )
@@ -374,3 +376,22 @@ def check_fractions_packed_small_b(device) -> None:
                 or got[1, :, 7].any() or got[:, :, 700:].any()):
             raise RuntimeError(f"fractions_packed_small_b kernel self-test FAILED on {device} "
                                f"at B={b}")
+
+
+def check_packed_gemm(device) -> None:
+    """Kernel canary of the scan past the small batches: at B = 9 (288 query
+    rows, 32 a query, in the selection's order) both products of
+    ``packed_gemm`` equal the plain version, bit for bit, on every chunk of
+    the planted traps (rotation and index ties, the duplicates at 129 and
+    257, an all-invalid entry): 3 chunks of 304 entries, 2 full DB tiles
+    and a ragged one each, the last chunk padded with all-zero entries."""
+    rng = np.random.default_rng(0x9E33)
+    pat, msk, qpat, qmsk = planted_packed_case(rng, b=9)  # 700 entries
+    q_enc, q_mask, db_pat, db_msk = _canary_inputs(device, pat, msk, qpat, qmsk)
+    query = packed_query(_fused_rows(q_enc), _fused_rows(q_mask))
+    for c in range(db_pat.shape[0]):
+        got = torch.stack(packed_gemm(query, db_pat[c], db_msk[c])).cpu()
+        want = torch.stack(packed_gemm_reference(query, db_pat[c], db_msk[c])).cpu()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"packed_gemm kernel self-test FAILED on {device} at B=9, "
+                               f"chunk {c}: {int((got != want).sum())} products differ")

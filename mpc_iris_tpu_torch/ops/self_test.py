@@ -13,6 +13,7 @@ from mpc_iris_tpu_torch.ops.dot import dot_bits_batch, dot_share_batch, shares_t
 from mpc_iris_tpu_torch.ops.packed_match import (
     check_fractions_packed_small_b,
     check_match_packed_small_b,
+    check_packed_gemm,
 )
 from mpc_iris_tpu_torch.ops.select import check_select_chunk
 from mpc_iris_tpu_torch.utils.profiling import annotate
@@ -64,3 +65,4 @@ def _self_test(device: torch.device) -> None:
         check_select_chunk(device)
         check_match_packed_small_b(device)
         check_fractions_packed_small_b(device)
+        check_packed_gemm(device)

@@ -12,19 +12,27 @@ import torch
 
 from mpc_iris_tpu import native
 from mpc_iris_tpu_torch.models import KeyedShareEngine, MasksEngine, PlaintextEngine, ShareEngine
-from mpc_iris_tpu_torch.models.engines import _pad_chunks, prepare_query_planes
+from mpc_iris_tpu_torch.models.engines import (
+    _pad_chunks,
+    fractions_scan_packed_auto,
+    match_scan_packed_auto,
+    prepare_query_planes,
+)
 from mpc_iris_tpu_torch.ops import b1_packed as tb1
 from mpc_iris_tpu_torch.ops import chacha as tcha
 from mpc_iris_tpu_torch.ops import dot as tdot
 from mpc_iris_tpu_torch.ops import gemm as tgemm
 from mpc_iris_tpu_torch.ops import keyed_dot as tkd
+from mpc_iris_tpu_torch.ops import packed_gemm as tpg
 from mpc_iris_tpu_torch.ops import packed_match as tpm
 from mpc_iris_tpu_torch.ops import select as tsel
 from mpc_iris_tpu_torch.ops import select_probes as tsp
 from mpc_iris_tpu_torch.ops import stream_probes as tstream
 from mpc_iris_tpu_torch.ops.encode import share_split_device
+from mpc_iris_tpu_torch.ops.scan import _fused_rows
 from mpc_iris_tpu_torch.protocol import coordinator as tcoord
 from mpc_iris_tpu_torch.smoke_data import BISECT_RANGES, probe_inputs, stream_inputs, tie_case
+from mpc_iris_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -103,6 +111,51 @@ def test_fractions_packed_small_b_kernel(cuda, b, chunk):
 def test_packed_kernel_canaries(cuda):
     tpm.check_match_packed_small_b(cuda)
     tpm.check_fractions_packed_small_b(cuda)
+    tpm.check_packed_gemm(cuda)
+
+
+# Batches past the small-batch dispatch; chunks of 304 and 1,000 entries are
+# ragged against the 128-entry DB tile, and the 700 entries' last chunk is
+# padded; planted_packed_case's rotation and index ties
+GEMM_CASES = [(9, 304), (13, 1000), (33, 304), (128, 1000)]
+
+
+@pytest.mark.parametrize("b,chunk", GEMM_CASES)
+def test_packed_gemm_kernel(cuda, b, chunk):
+    """Both products, the match's rows (32 a query) and the spectrum's (31),
+    bit-equal to the plain version on every chunk, one launch each."""
+    q_enc, q_mask, db_pat, db_msk = _packed_case(cuda, b, chunk)
+    for rows in (_fused_rows, lambda q: q.reshape(-1, q.shape[2])):
+        query = tpg.packed_query(rows(q_enc), rows(q_mask))
+        for c in range(db_pat.shape[0]):
+            before = tpg.packed_gemm.launches
+            got = tpg.packed_gemm(query, db_pat[c], db_msk[c])
+            torch.cuda.synchronize()
+            assert tpg.packed_gemm.launches == before + 1
+            want = tpg.packed_gemm_reference(query, db_pat[c], db_msk[c])
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("b", [9, 33])
+def test_packed_gemm_counts_one_a_chunk_on_the_dispatch(cuda, b):
+    """Under a capture, the dispatchers past the small batches launch the
+    kernel and count ``iris.scan.packed_gemm_chunks`` once a chunk; the
+    plain versions neither launch it nor count. Results equal."""
+    args = _packed_case(cuda, b, 304)
+    chunks = args[2].shape[0]
+    name = "iris.scan.packed_gemm_chunks"
+    runs = [(match_scan_packed_auto, tpm.match_packed_small_b_reference),
+            (fractions_scan_packed_auto, tpm.fractions_packed_small_b_reference)]
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        for scan, plain in runs:
+            for fn, want in ((scan, chunks), (plain, 0)):
+                launches = tpg.packed_gemm.launches
+                counted = profiling.snapshot()["counters"].get(name, 0)
+                fn(*args)
+                torch.cuda.synchronize()
+                assert tpg.packed_gemm.launches - launches == want
+                assert profiling.snapshot()["counters"].get(name, 0) - counted == want
+            assert torch.equal(scan(*args), plain(*args))
 
 
 @pytest.mark.parametrize("storage", ["packed", "dense"])
