@@ -1,0 +1,23 @@
+"""Faults under ``PlaintextEngine.match``, planted in ``match_arrays``."""
+
+from __future__ import annotations
+
+from mpc_iris_tpu_torch.models import engines
+
+
+def altered(monkeypatch) -> None:
+    """An answer altered where it is produced: every winner's index."""
+    orig = engines.PlaintextEngine.match_arrays
+
+    def match_arrays(self, q_enc, q_mask):
+        out = orig(self, q_enc, q_mask).clone()
+        out[2] += 1
+        return out
+    monkeypatch.setattr(engines.PlaintextEngine, "match_arrays", match_arrays)
+
+
+def half_batch(monkeypatch) -> None:
+    """Half of the batch left out."""
+    orig = engines.PlaintextEngine.match_arrays
+    monkeypatch.setattr(engines.PlaintextEngine, "match_arrays",
+                        lambda self, qe, qm: orig(self, qe[: len(qe) // 2], qm[: len(qm) // 2]))

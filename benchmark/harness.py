@@ -53,9 +53,24 @@ class Run:
     notes: list[str] = field(default_factory=list)
 
 
-def sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+def cards(device, chips: int) -> list[torch.device]:
+    """The cards of a cell of ``chips`` cards: ``cuda:0`` up to
+    ``cuda:<chips - 1>``; on the CPU, the one device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return [device]
+    return [torch.device("cuda", i) for i in range(chips)]
+
+
+def sync(used: list[torch.device]) -> None:
+    for card in used:
+        if card.type == "cuda":
+            torch.cuda.synchronize(card)
+
+
+def memory_peaks(used: list[torch.device]) -> dict[str, int]:
+    """Each card's peak of allocated device memory (0 on the CPU)."""
+    return {str(c): torch.cuda.max_memory_allocated(c) if c.type == "cuda" else 0 for c in used}
 
 
 def closed_loop(served, seconds: float, max_requests: int | None, span: bool) -> list[Request]:
@@ -96,38 +111,42 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device, t0: 
     traffic = {**mf.traffic(cell["traffic"]), **overrides.get("traffic", {})}
     entry = mf.entry(traffic["entry"])
     work = mf.work(traffic["entry"]).work(config, traffic)
+    used = cards(device, int(cell["chips"]))
 
     phases = [("imports", time.perf_counter())]
     inputs = entry.prepare(config, traffic, seed, device)
-    sync(device)
+    sync(used)
     phases.append(("inputs", time.perf_counter()))
     served = (entry.control if control else entry.build)(config, traffic, inputs, device)
-    sync(device)
+    sync(used)
     phases.append(("build", time.perf_counter()))
     for i in range(0 if control else int(traffic["warmup_requests"])):
         served(i)
-    sync(device)
+    sync(used)
     phases.append(("warm-up", time.perf_counter()))
     setup_s = phases[-1][1] - t0
 
     prof = tr.profiler() if trace else contextlib.nullcontext()
     with prof:
         done = closed_loop(served, seconds, max_requests, span=trace)
-        sync(device)
-    peak = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
+        sync(used)
+    peaks = memory_peaks(used)
     del served
     gc.collect()
     if torch.device(device).type == "cuda":
         torch.cuda.empty_cache()
     starts = [t0] + [t for _, t in phases]
     notes = ["set-up: " + ", ".join(f"{name} {t - s:.3f} s"
-                                    for (name, t), s in zip(phases, starts))]
+                                    for (name, t), s in zip(phases, starts)),
+             "peak device memory by card: " + ", ".join(f"{c} {b} bytes" for c, b in peaks.items())]
     reduced = None
     if trace:
         t = time.perf_counter()
         reduced = tr.reduce(prof)
         notes.append(f"trace: {len(reduced.device_ops)} device ops in {reduced.requests} "
                      f"requests, reduced in {time.perf_counter() - t:.1f} s")
+        notes.append(f"busy by card (of {reduced.window_s!r} s): " + ", ".join(
+            f"{card} {s!r} s" for card, s in reduced.busy_by_card.items()))
 
     ok = [r for r in done if r.error is None]
     t_judge = time.perf_counter()
@@ -158,5 +177,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device, t0: 
         metrics = {m["name"]: {"value": e2e[mf.quantity(m["name"])], "unit": m["unit"]}
                    for m in mf.end_to_end(manifest, workload)
                    if e2e.get(mf.quantity(m["name"])) is not None}
-    return Run(correct, len(done), len(done) - len(ok), metrics, checks, setup_s, peak,
+    return Run(correct, len(done), len(done) - len(ok), metrics, checks, setup_s,
+               max(peaks.values()),
                reduced, [r.error for r in done if r.error][:5], notes)

@@ -9,6 +9,7 @@ edit:
 - ``traffic/<traffic>.json``: the mix; its ``entry`` names the adapter;
 - ``entries/<entry>.py``: the adapter around one entry point of the port;
 - ``work/<entry>.py``: the bytes and operations a request of it needs;
+- ``faults/<entry>.py``: the faults the CPU tests plant under it;
 - ``metrics/<metric>.py``: the reader of one per-layer metric.
 """
 
@@ -82,6 +83,10 @@ def entry(name: str) -> ModuleType:
 
 def work(name: str) -> ModuleType:
     return _module("work", name)
+
+
+def faults(name: str) -> ModuleType:
+    return _module("faults", name)
 
 
 def metric_reader(name: str) -> ModuleType:

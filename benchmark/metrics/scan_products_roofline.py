@@ -1,7 +1,8 @@
 """The scan's products (e): the numerator-dot and denominator products of
-every chunk (``ops/scan.py::_chunk_products`` -> ``torch._int_mm``), whose
-least time is their int8 operations (31 rows a query) at the int8 peak,
-over the int8 GEMM kernels' time a request."""
+every chunk, both in one ``packed_gemm_kernel`` launch over the packed chunk
+(``ops/scan.py::_packed_gemm_products`` -> ``ops/packed_gemm.py`` ->
+``csrc/packed_gemm.cu``), whose least time is their int8 operations (31 rows
+a query) at the int8 peak, over the GEMM kernels' time a request."""
 
 from benchmark.peaks import INT8_OPS
 

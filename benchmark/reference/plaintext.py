@@ -13,10 +13,14 @@ and masks (1, 0) give exact integer sums below 2^24. The order of fractions
 is taken from an integer key floor(n 2^40 / d): two unequal fractions of
 denominators up to 12,800 differ by at least 1 / 12,800^2, more than 6,000
 steps of the key, and equal fractions have equal keys, so the key orders them
-exactly. Imports nothing of the port.
+exactly. The winner is the lexicographic minimum of (key, index), kept as two
+numbers, so the DB may hold any number of entries. Imports nothing of the
+port.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -25,7 +29,6 @@ from benchmark.data import BITS, COLS, ROTATIONS, ROWS
 
 KEY_SHIFT = 40
 INVALID = (1 << KEY_SHIFT) + 1  # above every valid key (n <= d)
-INDEX_BITS = 22  # DB index field of the winner's key: up to 4,194,304 entries
 
 
 def unpack(packed: torch.Tensor) -> torch.Tensor:
@@ -77,6 +80,38 @@ def _f64(n: int, d: int, dtype) -> float:
     return float(dtype(n) / dtype(d)) if d else float("inf")
 
 
+@dataclass
+class Winners:
+    """The running winner of each query: fraction key, DB index, n, d,
+    int64 [Q] each. A query that no entry has an unmasked bit in keeps
+    index 0, n = d = 0."""
+
+    key: torch.Tensor
+    index: torch.Tensor
+    n: torch.Tensor
+    d: torch.Tensor
+
+    @classmethod
+    def none(cls, q: int, device) -> Winners:
+        key = torch.full((q,), INVALID, dtype=torch.int64, device=device)
+        zero = torch.zeros_like(key)
+        return cls(key, zero, zero, zero)
+
+    def fold(self, key, n, d, start: int) -> Winners:
+        """Fold in one block of entries, ``start`` its first DB index, as
+        int64 [Q, b] (key, n, d): within the block the least key, then the
+        least index at that key; against the running winner the block wins
+        only on a strictly lower key, so ties keep the earlier block's."""
+        v = key.min(dim=1).values
+        col = torch.arange(key.shape[1], device=key.device)
+        j = torch.where(key == v[:, None], col, key.shape[1]).min(dim=1).values[:, None]
+        win = v < self.key
+        return Winners(torch.where(win, v, self.key),
+                       torch.where(win, start + j.squeeze(1), self.index),
+                       torch.where(win, n.gather(1, j).squeeze(1), self.n),
+                       torch.where(win, d.gather(1, j).squeeze(1), self.d))
+
+
 def match(db_pat, db_msk, pat, msk, device, block: int = 16384, dtype=np.float64):
     """Per query the winner (index, n, d, distance): packed DB uint8
     [N, 1600] x2 on the host, packed queries [Q, 1600]. ``dtype``: the
@@ -84,22 +119,12 @@ def match(db_pat, db_msk, pat, msk, device, block: int = 16384, dtype=np.float64
     next one down)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if db_pat.shape[0] > 1 << INDEX_BITS:
-        raise ValueError("the winner's key holds indices below 2^22")
     q_enc, q_mask = query_rows(pat, msk, device)
-    best = torch.full((pat.shape[0],), INVALID << INDEX_BITS, dtype=torch.int64, device=device)
-    best_n = torch.zeros_like(best)
-    best_d = torch.zeros_like(best)
+    best = Winners.none(pat.shape[0], device)
     for start, (p, m) in _blocks(db_pat, db_msk, device, block):
-        key, n, d = entry_fractions(q_enc, q_mask, p, m)
-        idx = torch.arange(start, start + key.shape[1], device=device)
-        v, j = ((key << INDEX_BITS) + idx).min(dim=1)
-        win = v < best
-        best = torch.where(win, v, best)
-        best_n = torch.where(win, n.gather(1, j[:, None]).squeeze(1), best_n)
-        best_d = torch.where(win, d.gather(1, j[:, None]).squeeze(1), best_d)
-    return [(v & ((1 << INDEX_BITS) - 1), n, d, _f64(n, d, dtype))
-            for v, n, d in zip(best.tolist(), best_n.tolist(), best_d.tolist())]
+        best = best.fold(*entry_fractions(q_enc, q_mask, p, m), start)
+    return [(i, n, d, _f64(n, d, dtype))
+            for i, n, d in zip(best.index.tolist(), best.n.tolist(), best.d.tolist())]
 
 
 def audit(db_pat, db_msk, pat, msk, threshold: float, device, block: int = 16384,

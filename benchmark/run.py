@@ -67,7 +67,8 @@ def main(argv=None) -> int:
         result["breakdown"] = run.trace.breakdown()
     result["checks"] = run.checks
     print(f"card: {card_line()}; setup_s {run.setup_s!r}; peak device memory "
-          f"{run.memory_peak_bytes} bytes (max_memory_allocated)", file=sys.stderr)
+          f"{run.memory_peak_bytes} bytes (max_memory_allocated, the fullest card)",
+          file=sys.stderr)
     for note in run.notes:
         print(note, file=sys.stderr)
     for err in run.errors:

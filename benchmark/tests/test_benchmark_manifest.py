@@ -87,6 +87,8 @@ def test_configs_and_cells():
         traffic = mf.traffic(w["traffic"])
         mf.entry(traffic["entry"])
         mf.work(traffic["entry"])
+        faults = mf.faults(traffic["entry"])
+        assert callable(faults.altered) and callable(faults.half_batch)
 
 
 def test_every_cell_reports_enough():
@@ -127,34 +129,54 @@ def test_a_full_check_fits_the_day():
 
 
 def test_new_files_add_a_cell_with_no_edit(tmp_path):
-    """A configuration, a traffic mix and a cell added as files and an entry
-    of BENCHMARK.json run through the same code."""
+    """A new entry point (its adapter, work and faults), a configuration, a
+    traffic mix and two cells over them, one of one card and one of four,
+    added as files and entries of BENCHMARK.json, run through the same code
+    with no file of the benchmark edited: both correct, and the new entry's
+    own faults make the first not correct. On the CPU the four-card cell's
+    card list is the one device."""
     shutil.copytree(mf.HERE, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    before = {p: p.read_bytes() for p in (tmp_path / "benchmark").rglob("*") if p.is_file()}
+    for folder in ("entries", "work", "faults"):
+        shutil.copy(tmp_path / "benchmark" / folder / "match.py",
+                    tmp_path / "benchmark" / folder / "tiny_match.py")
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
     manifest["configs"].append({"name": "tiny-db", "source": "test", "reduced": [],
                                 "file": "benchmark/configs/tiny-db.json", "why": "test"})
-    manifest["workloads"].append({"name": "tiny.match-b2", "config": "tiny-db",
-                                  "traffic": "tiny-b2", "chips": 1, "why": "test"})
+    cells = ["tiny.match-b2", "tiny.match-b2-4chip"]
+    manifest["workloads"] += [
+        {"name": cells[0], "config": "tiny-db", "traffic": "tiny-b2", "chips": 1, "why": "test"},
+        {"name": cells[1], "config": "tiny-db", "traffic": "tiny-b2-4", "chips": 4, "why": "test"}]
     for m in manifest["end_to_end"] + manifest["per_layer"]:
         if "workloads" in m and "plain3m-match-b128" in m["workloads"]:
-            m["workloads"].append("tiny.match-b2")
+            m["workloads"] += cells
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(manifest))
     (tmp_path / "benchmark/configs/tiny-db.json").write_text(json.dumps(
         {"system": "plaintext", "entries": 300, "storage": "packed", "chunk": 128,
          "reduced": []}))
-    (tmp_path / "benchmark/traffic/tiny-b2.json").write_text(json.dumps(
-        {"entry": "match", "batch": 2, "duplicate_share": 0.5, "flip_bits": 8,
-         "distinct_requests": 3, "warmup_requests": 1, "check_queries": 4,
-         "control_requests": 2}))
-    code = ("import time; from benchmark import harness; "
-            "r = harness.run_cell('tiny.match-b2', 5, 0.3, False, 'cpu', time.perf_counter()); "
-            "print(r.correct, sorted(r.metrics))")
+    mix = {"entry": "tiny_match", "batch": 2, "duplicate_share": 0.5, "flip_bits": 8,
+           "distinct_requests": 3, "warmup_requests": 1, "check_queries": 4,
+           "control_requests": 2}
+    (tmp_path / "benchmark/traffic/tiny-b2.json").write_text(json.dumps(mix))
+    (tmp_path / "benchmark/traffic/tiny-b2-4.json").write_text(json.dumps({**mix, "batch": 4}))
+    code = ("import time, pytest; from benchmark import harness, manifest as mf\n"
+            "def run(cell):\n"
+            "    r = harness.run_cell(cell, 5, 0.3, False, 'cpu', time.perf_counter())\n"
+            "    return r.correct, r.memory_peak_bytes, sorted(r.metrics)\n"
+            "print(run('tiny.match-b2'))\n"
+            "print(run('tiny.match-b2-4chip'))\n"
+            "for fault in ('altered', 'half_batch'):\n"
+            "    with pytest.MonkeyPatch.context() as mp:\n"
+            "        getattr(mf.faults('tiny_match'), fault)(mp)\n"
+            "        print(run('tiny.match-b2'))\n")
     env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.split()[0] == "True", out.stdout
+    e2e = sorted(m["name"] for m in mf.end_to_end(manifest, cells[0]))
+    assert out.stdout.splitlines()[-4:] == [str((True, 0, e2e))] * 2 + [str((False, 0, e2e))] * 2
+    assert all(p.read_bytes() == b for p, b in before.items())
 
 
 @pytest.mark.parametrize("name", [w["name"] for w in M["workloads"]])

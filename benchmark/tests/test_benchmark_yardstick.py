@@ -42,6 +42,7 @@ def test_a_run_loads_nothing_of_jax():
             "for x in m['per_layer']: mf.metric_reader(x['name'])\n"
             "for w in m['workloads']:\n"
             "    t = mf.traffic(w['traffic']); mf.entry(t['entry']); mf.work(t['entry'])\n"
+            "    mf.faults(t['entry'])\n"
             "harness.run_cell('plain3m-match-b1', 1, 0.2, True, 'cpu', time.perf_counter(),\n"
             "    overrides={'config': {'entries': 300}, 'traffic': {'distinct_requests': 2,\n"
             "    'check_queries': 2}})")
@@ -95,6 +96,28 @@ def test_plaintext_reference_matches_template_distance():
         want = sorted((dist[q][e], e) for e in range(n) if dist[q][e] < t)
         assert [(d, i) for i, _, _, d in hits[q]] == want
     assert [h[0] for h in hits[0][:2]] == [4, 30]
+
+
+def test_the_winner_fold_past_2_22_entries():
+    """The reference's running winner, fed synthetic blocks at DB indices
+    past 2^22: the lower index among equal fractions, within a block and
+    across a block boundary; a strictly lower fraction in a later block
+    wins; indices come back whole."""
+    inf = plaintext.INVALID
+    best = plaintext.Winners.none(3, "cpu")
+    key = torch.tensor([[9, 5, 7, 5], [inf, inf, inf, inf], [4, 6, 4, 9]])
+    n, d = key * 10 + torch.arange(4), key * 100 + torch.arange(4)
+    start = (1 << 22) + 5
+    best = best.fold(key, n, d, start)
+    assert best.index.tolist() == [start + 1, 0, start]
+    assert best.key.tolist() == [5, inf, 4] and best.n.tolist() == [51, 0, 40]
+    assert best.d.tolist() == [501, 0, 400]
+    start2 = 12_000_000 - 2  # the next block: equal, higher, lower keys
+    key2 = torch.tensor([[8, 5], [inf, 7], [3, 3]])
+    best = best.fold(key2, key2 * 10 + 2, key2 * 100 + 2, start2)
+    assert best.index.tolist() == [start + 1, start2 + 1, start2]
+    assert best.key.tolist() == [5, 7, 3] and best.n.tolist() == [51, 72, 32]
+    assert best.d.tolist() == [501, 702, 302]
 
 
 def test_keystream_matches_rfc8439_and_the_port():
@@ -195,11 +218,12 @@ def test_int8_launches_follow_the_port():
         assert int8_launches(b) == [q for _, q, g in _launch_plan(b) if g > 1]
 
 
-def _event(name, start, dur, device="CPU"):
+def _event(name, start, dur, device="CPU", card=0):
     from torch.autograd import DeviceType
 
     return SimpleNamespace(name=lambda: name, start_ns=lambda: start, duration_ns=lambda: dur,
-                           device_type=lambda: getattr(DeviceType, device))
+                           device_type=lambda: getattr(DeviceType, device),
+                           device_index=lambda: card)
 
 
 def test_trace_arithmetic():
@@ -224,6 +248,37 @@ def test_trace_arithmetic():
     assert gaps["cudaEventSynchronize"] == pytest.approx(70e-9)  # 130 .. 200
     assert gaps["request"] == pytest.approx(10e-9)  # 0 .. 10
     assert [k for k, _ in t.breakdown()["device_ops"]][:1] == ["k1"]
+    assert t.busy_by_card == {0: t.busy_s}
+
+
+SPANS = [(0, 100), (100, 200)]
+HOST = [(0, 100, "request"), (100, 200, "request"), (40, 100, "aten::copy_"),
+        (150, 190, "cudaEventSynchronize")]
+OPS = [("k1", 0, 10, 30), ("k2", 0, 30, 20), ("Memcpy DtoH", 0, 120, 10), ("late", 0, 300, 50)]
+
+
+def test_busy_by_card():
+    """Synthetic operations (name, card, start, duration): on one card the
+    card's busy time is the device's, with the same gaps; with a second
+    card overlapping the first, each card's time is its own, the device's
+    is their union (below the sum), and the gaps and their labels are
+    those of the union."""
+    one = tr.from_events(SPANS, list(HOST), OPS)
+    assert one.busy_s == pytest.approx(50e-9) and one.idle_pct == pytest.approx(75.0)
+    assert one.busy_by_card == {0: one.busy_s}
+    assert one.gaps == [("request", 10e-9), ("aten::copy_", 70e-9),
+                        ("cudaEventSynchronize", 70e-9)]
+    assert [op[0] for op in one.device_ops] == ["k1", "k2", "Memcpy DtoH"]
+    ops = OPS + [("k3", 1, 20, 40), ("k4", 1, 170, 40)]  # card 1: 20 .. 60, 170 .. 200
+    two = tr.from_events(SPANS, list(HOST), ops)
+    assert two.busy_by_card == pytest.approx({0: 50e-9, 1: 70e-9})
+    assert two.busy_s == pytest.approx(90e-9)  # 10 .. 60, 120 .. 130, 170 .. 200
+    assert max(two.busy_by_card.values()) <= two.busy_s < sum(two.busy_by_card.values())
+    assert two.idle_pct == pytest.approx(55.0)
+    flat = tr.from_events(SPANS, list(HOST), [(name, 0, s, d) for name, _, s, d in ops])
+    assert (two.busy_s, two.gaps, two.device_ops) == (flat.busy_s, flat.gaps, flat.device_ops)
+    assert two.gaps == [("request", 10e-9), ("aten::copy_", 60e-9),
+                        ("cudaEventSynchronize", 40e-9)]
 
 
 def _ctx(**work):
@@ -253,6 +308,30 @@ def test_readers():
     for name in ("pk_select_roofline", "share_dots_roofline", "scan_products_roofline",
                  "packed_fractions_roofline", "reply_copy_gbps"):
         assert mf.metric_reader(name).read(empty) is None
+
+
+@pytest.mark.gpu
+def test_four_cards_in_one_trace():
+    """Products on each of four cards under the benchmark's profiler: the
+    trace keeps each card's busy time, and the device's lies between the
+    busiest card's and the sum."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards")
+    xs = [torch.ones(4096, 4096, device=f"cuda:{i}") for i in range(4)]
+    for i, x in enumerate(xs):
+        x @ x
+        torch.cuda.synchronize(i)
+    with tr.profiler() as prof:
+        with torch.profiler.record_function(tr.SPAN):
+            for _ in range(8):
+                ys = [x @ x for x in xs]
+            for i in range(4):
+                torch.cuda.synchronize(i)
+    t = tr.reduce(prof)
+    print(f"busy_s {t.busy_s!r}, window_s {t.window_s!r}, by card {t.busy_by_card!r}")
+    assert all(float(y[0, 0]) == 4096 for y in ys)
+    assert sorted(t.busy_by_card) == [0, 1, 2, 3]
+    assert max(t.busy_by_card.values()) <= t.busy_s <= sum(t.busy_by_card.values()) + 1e-12
 
 
 @pytest.mark.gpu

@@ -3,7 +3,8 @@ the per-layer readers and the breakdown take.
 
 Every request runs inside a ``request`` span of the harness's own. The
 window is the first request's start to the last one's end; the device is busy
-where any device operation (kernel, copy, set) runs, merged over overlaps.
+where any device operation (kernel, copy, set) runs on any card, merged over
+overlaps, and each card is busy where its own operations run.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ class Trace:
     requests: int
     device_ops: list[tuple[str, int, int]]  # name, start ns, duration ns
     gaps: list[tuple[str, float]] = field(default_factory=list)  # host op under a gap, s
+    busy_by_card: dict[int, float] = field(default_factory=dict)  # card -> s busy
 
     def device_seconds(self, match) -> float:
         """Seconds of the device operations whose name ``match`` accepts."""
@@ -76,17 +78,32 @@ def reduce(prof) -> Trace:
         elif e.name() != SPAN and not getattr(e, "is_user_annotation", lambda: False)():
             # the profiler mirrors each host span on the device's timeline;
             # those are not device work
-            device.append((e.name(), start, dur))
+            device.append((e.name(), e.device_index(), start, dur))
+    return from_events(spans, host, device)
+
+
+def from_events(spans, host, device) -> Trace:
+    """The window's arithmetic, in ns: ``spans`` the harness's requests as
+    (start, end), ``host`` the host's events as (start, end, name),
+    ``device`` the device operations as (name, card, start, duration)."""
     if not spans:
         raise RuntimeError("the traced window holds no request")
     w0 = min(s for s, _ in spans)
     w1 = max(e for _, e in spans)
-    inside = [(max(s, w0), min(s + d, w1)) for _, s, d in device if s < w1 and s + d > w0]
-    busy = _merge(inside)
-    busy_ns = sum(e - s for s, e in busy)
-    return Trace((w1 - w0) / 1e9, busy_ns / 1e9, len(spans),
-                 [op for op in device if op[1] < w1 and op[1] + op[2] > w0],
-                 _label_gaps(busy, w0, w1, host))
+    ops = [op for op in device if op[2] < w1 and op[2] + op[3] > w0]
+    by_card = defaultdict(list)
+    for _, card, s, d in ops:
+        by_card[card].append((max(s, w0), min(s + d, w1)))
+    merged = {card: _merge(iv) for card, iv in sorted(by_card.items())}
+    busy = _merge(iv for card in merged.values() for iv in card)
+    return Trace((w1 - w0) / 1e9, _seconds(busy), len(spans),
+                 [(name, s, d) for name, _, s, d in ops],
+                 _label_gaps(busy, w0, w1, host),
+                 {card: _seconds(iv) for card, iv in merged.items()})
+
+
+def _seconds(merged) -> float:
+    return sum(e - s for s, e in merged) / 1e9
 
 
 def _label_gaps(busy, w0: int, w1: int, host) -> list[tuple[str, float]]:
