@@ -196,6 +196,7 @@ from mpc_iris_tpu_torch.models.engines import (
     _queries_to_natural_k,
     _share_dots_chunk,
     find_under_from_fractions,
+    host_spectrum,
 )
 from mpc_iris_tpu_torch.ops import _build, stream_probes
 from mpc_iris_tpu_torch.ops.b1_packed import (
@@ -491,10 +492,6 @@ def triples(results) -> torch.Tensor:
 
 def rows(lists):
     return [[(m.index, m.distance, m.numerator, m.denominator) for m in row] for row in lists]
-
-
-def host_spectrum(nd: torch.Tensor, count: int) -> np.ndarray:
-    return nd[:, :, :count].cpu().numpy().astype(np.uint16)
 
 
 def overflow_threshold(nd: np.ndarray):

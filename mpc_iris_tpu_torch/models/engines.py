@@ -393,6 +393,15 @@ def _engine_chunk(chunk: int, n: int, device: torch.device) -> int:
     return chunk
 
 
+def host_spectrum(nd: torch.Tensor, count: int) -> np.ndarray:
+    """A device spectrum int16 [2, B, N_padded] -> host uint16 [2, B, count]:
+    a pageable copy of its first ``count`` entries (the host waits for the
+    card inside it), then the u16 view of the values."""
+    with annotate("iris.wait"):
+        nd = nd[:, :, :count].cpu()
+    return nd.numpy().astype(np.uint16)
+
+
 def _put_u8(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device, torch.uint8)
@@ -507,9 +516,7 @@ class PlaintextEngine:
         return _fractions_scan(q_enc, q_mask, self.db_enc, self.db_mask)
 
     def _host_spectrum(self, nd: torch.Tensor) -> np.ndarray:
-        with annotate("iris.wait"):
-            nd = nd[:, :, : self.count].cpu()
-        return nd.numpy().astype(np.uint16)
+        return host_spectrum(nd, self.count)
 
     def min_fractions(self, patterns_packed, masks_packed) -> np.ndarray:
         """Per-entry minimal exact fractions: uint16 [2, B, N], the

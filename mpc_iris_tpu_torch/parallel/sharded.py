@@ -65,6 +65,7 @@ from mpc_iris_tpu_torch.models.engines import (
     _to_entry_major,
     _unpack_encode_chunk,
     fractions_scan_packed_auto,
+    host_spectrum,
     match_scan_auto,
     match_scan_packed_auto,
     orchestrate_find_under,
@@ -76,6 +77,8 @@ from mpc_iris_tpu_torch.ops.decode import INDEX_PAD
 from mpc_iris_tpu_torch.ops.encode import unpack_bits
 from mpc_iris_tpu_torch.ops.self_test import kernel_self_test
 from mpc_iris_tpu_torch.parallel.collectives import all_gather_cat, fraction_allmin
+from mpc_iris_tpu_torch.utils.profiling import annotate
+from mpc_iris_tpu_torch.utils.profiling import count as count_event
 
 _M32 = 0xFFFFFFFF
 
@@ -158,7 +161,8 @@ class _ShardedBase:
         0 is done."""
         if devices is None:
             devices = (self._home(i) for i in self._shards)
-        return {dev: t.to(dev) for dev in dict.fromkeys(devices)}
+        with annotate("iris.query_prep"):
+            return {dev: t.to(dev) for dev in dict.fromkeys(devices)}
 
     def _block_rows(self, j: int, src, n: int) -> np.ndarray:
         """Block j's rows of this process's (MPC) shards: ONE contiguous
@@ -199,8 +203,9 @@ class _ShardedBase:
         return q_enc
 
     def _queries(self, patterns_packed, masks_packed):
-        return prepare_query_planes(_put_u8(patterns_packed, self.device),
-                                    _put_u8(masks_packed, self.device))
+        with annotate("iris.query_prep"):
+            return prepare_query_planes(_put_u8(patterns_packed, self.device),
+                                        _put_u8(masks_packed, self.device))
 
 
 class ShardedPlaintextEngine(_ShardedBase):
@@ -212,7 +217,8 @@ class ShardedPlaintextEngine(_ShardedBase):
         choice) keeps raw bit planes per shard (3.2 KB per entry) and unpacks
         per chunk on the device; "dense" keeps int8 encodings and masks.
         Each of this process's devices on mesh row i holds shard i's chunks,
-        once per distinct device."""
+        once per distinct device, uploaded chunk by chunk from the host
+        arrays (:meth:`_upload_local`)."""
         n = patterns_packed.shape[0]
         chunk = effective_chunk(chunk, n, mesh.shape["db"], mesh.device_type)
         super().__init__(mesh, chunk)
@@ -223,36 +229,66 @@ class ShardedPlaintextEngine(_ShardedBase):
         self.storage = storage
         self.count = n
         self.g_blocks = max(1, -(-n // (chunk * self.n_shards)))
-        pat_b = self._blocked_local(patterns_packed)
-        msk_b = self._blocked_local(masks_packed)
         # global shard i -> {device: (a, b)}: packed planes, or encodings and
         # masks, on each of this process's devices of row i
-        lo = self.db_span[0]
         self._db = {}
-        for i, j in self._entries:
-            dev = mesh.devices[i, j]
-            per_dev = self._db.setdefault(i, {})
-            if dev in per_dev:
-                continue
-            a, b = torch.from_numpy(pat_b[i - lo]).to(dev), torch.from_numpy(msk_b[i - lo]).to(dev)
-            if storage == "dense":
-                enc = torch.empty((a.shape[0], chunk, BITS), dtype=torch.int8, device=dev)
-                mask = torch.empty_like(enc)
-                for c in range(a.shape[0]):
-                    enc[c], mask[c] = _unpack_encode_chunk(a[c], b[c])
-                a, b = enc, mask
-            per_dev[dev] = (a, b)
+        with annotate("iris.setup.db_load"):
+            pat_s = self._upload_local(patterns_packed)
+            msk_s = self._upload_local(masks_packed)
+            for i, per_dev in pat_s.items():
+                for dev, a in per_dev.items():
+                    b = msk_s[i][dev]
+                    if storage == "dense":
+                        enc = torch.empty((a.shape[0], chunk, BITS), dtype=torch.int8, device=dev)
+                        mask = torch.empty_like(enc)
+                        for c in range(a.shape[0]):
+                            enc[c], mask[c] = _unpack_encode_chunk(a[c], b[c])
+                        a, b = enc, mask
+                    self._db.setdefault(i, {})[dev] = (a, b)
 
-    def _blocked_local(self, src) -> np.ndarray:
-        """This process's shards' slabs, uint8 [hi-lo, G, chunk, 1600], read
-        chunk by chunk from ONLY the local rows of ``src``."""
+    def _upload_local(self, src) -> dict:
+        """This process's shards' slabs of one packed plane: global shard i
+        -> {device: uint8 [G, chunk, 1600]}, on each of this process's
+        distinct devices of row i, zero-padded. Each chunk's rows go from
+        ``src`` (read only at this process's rows) to every device of its
+        shard, through one reusable staging buffer, never a host copy of the
+        whole local DB: on the card a ring of pinned slots, each refilled
+        once the upload out of it is done, so that the host fills one slot
+        while the cards take the others."""
         lo, hi = self.db_span
-        n = src.shape[0]
-        out = np.zeros((hi - lo, self.g_blocks, self.chunk, src.shape[1]), np.uint8)
+        n, width = src.shape
+        slabs = {}
+        for i, j in self._entries:
+            dev = self.mesh.devices[i, j]
+            per_dev = slabs.setdefault(i, {})
+            if dev not in per_dev:
+                per_dev[dev] = torch.zeros((self.g_blocks, self.chunk, width), dtype=torch.uint8,
+                                           device=dev)
+        pinned = self.mesh.device_type == "cuda"
+        slots = 4 if pinned else 1
+        stage = torch.empty((slots, self.chunk, width), dtype=torch.uint8, pin_memory=pinned)
+        stage_np = stage.numpy()
+        done = [[] for _ in range(slots)]
+        k = 0
         for j, li, s, e in _local_chunk_iter(n, self.chunk, self.n_shards, lo, hi):
-            if e > s:
-                out[li, j, : e - s] = src[s:e]
-        return out
+            if e <= s:
+                continue
+            slot = k % slots
+            k += 1
+            for event in done[slot]:
+                event.synchronize()
+            np.copyto(stage_np[slot, : e - s], src[s:e], casting="unsafe")
+            done[slot] = []
+            for dev, slab in slabs[lo + li].items():
+                slab[j, : e - s].copy_(stage[slot, : e - s], non_blocking=pinned)
+                if pinned:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(dev))
+                    done[slot].append(event)
+        for events in done:
+            for event in events:
+                event.synchronize()
+        return slabs
 
     def _columns(self, b: int):
         """The query rows of each ``"batch"`` column: (column, slice)."""
@@ -275,35 +311,42 @@ class ShardedPlaintextEngine(_ShardedBase):
             qs[j] = (self._spread(q_enc[rows], devs), self._spread(q_mask[rows], devs))
         for i, j in self._entries:
             dev = self.mesh.devices[i, j]
-            yield j, rows_of[j], i, fn(qs[j][0][dev], qs[j][1][dev], *self._db[i][dev])
+            out = fn(qs[j][0][dev], qs[j][1][dev], *self._db[i][dev])
+            count_event("iris.shard.bodies")
+            yield j, rows_of[j], i, out
 
     def match_arrays(self, q_enc, q_mask) -> torch.Tensor:
         """Prepared query planes -> int32 [3, B] (numerator, denominator,
-        global DB index) on the engine's first device: each column's winners
-        fold over this process's shards; in a party of several processes
-        they then fold over the ranks (a column a rank does not compute is
-        the invalid candidate there)."""
+        global DB index) on the engine's first device: every shard's body is
+        launched first; then each column's winners fold over this process's
+        shards, and in a party of several processes over the ranks (a
+        column a rank does not compute is the invalid candidate there)."""
         c, d = self.chunk, self.n_shards
         scan = match_scan_packed_auto if self.storage == "packed" else match_scan_auto
-        cols = {}
-        for j, rows, i, (n_, d_, l) in self._per_shard(q_enc, q_mask, scan):
-            # local l = jc*c + p  ->  global (jc*D + i)*c + p, int32
-            g = (l // c) * (d * c) + i * c + l % c
-            cols.setdefault(j, (rows, []))[1].append((n_, d_, g))
-        folded = {j: (rows, torch.stack(fraction_allmin(*zip(*triples), self.device)))
-                  for j, (rows, triples) in cols.items()}
-        if self._group is None:  # every column is computed here
-            return torch.cat([folded[j][1] for j in sorted(folded)], dim=1)
-        win = torch.zeros((3, q_enc.shape[0]), dtype=torch.int32, device=self.device)
-        win[2] = INDEX_PAD
-        for rows, w in folded.values():
-            win[:, rows] = w
-        return torch.stack(fraction_allmin([win[0]], [win[1]], [win[2]], self.device,
-                                           self._group))
+        bodies = list(self._per_shard(q_enc, q_mask, scan))
+        with annotate("iris.fold"):
+            cols = {}
+            for j, rows, i, (n_, d_, l) in bodies:
+                # local l = jc*c + p  ->  global (jc*D + i)*c + p, int32
+                g = (l // c) * (d * c) + i * c + l % c
+                cols.setdefault(j, (rows, []))[1].append((n_, d_, g))
+            folded = {j: (rows, torch.stack(fraction_allmin(*zip(*triples), self.device)))
+                      for j, (rows, triples) in cols.items()}
+            if self._group is None:  # every column is computed here
+                return torch.cat([folded[j][1] for j in sorted(folded)], dim=1)
+            win = torch.zeros((3, q_enc.shape[0]), dtype=torch.int32, device=self.device)
+            win[2] = INDEX_PAD
+            for rows, w in folded.values():
+                win[:, rows] = w
+            return torch.stack(fraction_allmin([win[0]], [win[1]], [win[2]], self.device,
+                                               self._group))
 
     def match(self, patterns_packed, masks_packed):
-        n, d, i = self.match_arrays(*self._queries(patterns_packed, masks_packed)).cpu().numpy()
-        return _results_from_triples(n, d, i)
+        with annotate("iris.match", request=True):
+            out = self.match_arrays(*self._queries(patterns_packed, masks_packed))
+            with annotate("iris.wait"):
+                n, d, i = out.cpu().numpy()
+            return _results_from_triples(n, d, i)
 
     def _guard_spectrum(self, b: int, what: str) -> None:
         """The spectrum costs 4 bytes per (query, padded entry), reassembled
@@ -332,7 +375,7 @@ class ShardedPlaintextEngine(_ShardedBase):
         return out.reshape(2, b, -1)
 
     def _host_spectrum(self, nd: torch.Tensor) -> np.ndarray:
-        return nd[:, :, : self.count].cpu().numpy().astype(np.uint16)
+        return host_spectrum(nd, self.count)
 
     def min_fractions(self, patterns_packed, masks_packed) -> np.ndarray:
         """uint16 [2, B, N]: per-entry minimal (numerator, denominator) pair,
@@ -354,15 +397,17 @@ class ShardedPlaintextEngine(_ShardedBase):
         if math.isnan(t) or t <= 0.0:
             return [[] for _ in range(b)]
         self._guard_spectrum(b, "find_under spectrum")
-        q_enc, q_mask = self._queries(patterns_packed, masks_packed)
-        spectrum = functools.cache(lambda: self._spectrum(q_enc, q_mask))
+        with annotate("iris.find_under", request=True):
+            q_enc, q_mask = self._queries(patterns_packed, masks_packed)
+            spectrum = functools.cache(lambda: self._spectrum(q_enc, q_mask))
 
-        def compact(t_hi, k):
-            meta, nd_c = _compact_under_device(spectrum(), t_hi, k)
-            return meta.cpu().numpy(), nd_c.cpu().numpy()
+            def compact(t_hi, k):
+                meta, nd_c = _compact_under_device(spectrum(), t_hi, k)
+                with annotate("iris.wait"):
+                    return meta.cpu().numpy(), nd_c.cpu().numpy()
 
-        return orchestrate_find_under(self.count, b, threshold, limit, compact_k,
-                                      lambda: self._host_spectrum(spectrum()), compact)
+            return orchestrate_find_under(self.count, b, threshold, limit, compact_k,
+                                          lambda: self._host_spectrum(spectrum()), compact)
 
 
 class _BlockListEngine(_ShardedBase):
