@@ -233,6 +233,7 @@ from mpc_iris_tpu_torch.ops.keyed_dot import (
     keyed_share_dots_reference,
 )
 from mpc_iris_tpu_torch.ops.packed_match import (
+    _launch_int8_group,
     _launch_plan,
     _one_query_operand,
     fractions_packed_small_b,
@@ -439,13 +440,17 @@ def packed_rate(b: int, n: int, ms: float) -> str:
 def query_l2_bytes(lib, b: int, n: int) -> int:
     """Bytes of query the packed match kernels read from L2 for a batch of b:
     an int8 kernel's block reads its group's 400 slabs of 2 x (32 x group) x
-    32 bytes; the binary kernel of a group of one reads its 64 x 1,632-byte
-    operand once a block (one block an SM, at most one a tile)."""
+    32 bytes; the group of 8's two blocks of a tile read one 256 x 12,800
+    query plane each; the binary kernel of a group of one reads its 64 x
+    1,632-byte operand once a block (one block an SM, at most one a tile)."""
     total = 0
     for _, nq, qg in _launch_plan(b):
         if qg == 1:
             sms = torch.cuda.get_device_properties(0).multi_processor_count
             total += min(-(-n // lib.pk_tile_entries()), sms) * 64 * Q_ROW
+            continue
+        if qg == 8:
+            total += -(-n // lib.packed_tile_entries(qg)) * 2 * 32 * qg * BITS
             continue
         n_tiles = -(-n // lib.packed_tile_entries(qg))
         total += -(-nq // qg) * n_tiles * 400 * 2 * 32 * qg * 32
@@ -2045,7 +2050,8 @@ def main() -> int:
     kernel = "?"
     for line in b.log.splitlines():
         if "Compiling entry function" in line:
-            kernel = next((k for k in ("select_part_kernel", "packed_match_kernel",
+            kernel = next((k for k in ("select_part_kernel", "packed_match_kernel_g8",
+                                       "packed_match_kernel",
                                        "packed_fractions_kernel", "fold_parts_kernel",
                                        "chacha_planes_kernel", "int8_gemm_kernel",
                                        "packed_gemm_kernel",
@@ -2306,6 +2312,16 @@ def main() -> int:
         print(f"  {packed_rate(bb, packed.count, k_ms)}; bound {bound_ms:.3f} ms "
               f"({bound_by}), {bound_ms / k_ms:.1%} of it; query slabs read from L2 "
               f"{query_l2_bytes(lib, bb, packed.count) / 1e9:.2f} GB")
+        if bb == 8:
+            # the group of 8 beside the loop it replaced there, two groups of 4
+            fours = torch.empty_like(got)
+            n_slab = packed.db_pat.shape[0] * packed.db_pat.shape[1]
+            four = lambda: _launch_int8_group(lib, *args4, n_slab, 4, fours, 8)  # noqa: E731
+            four()
+            check(torch.equal(fours, want), "match_packed_small_b B=8 as groups of 4 equals "
+                  "the plain version")
+            print(f"  B=8: the group of 8 {k_ms:.3f} ms, as two groups of 4 "
+                  f"{cuda_ms(four, 5):.3f} ms [{card}]")
     args4 = (q_enc[:16], q_mask[:16], packed.db_pat, packed.db_msk)
     print(f"SM clock and power with match_packed_small_b B=16 running: "
           f"{clocks_under(lambda: match_packed_small_b(*args4), 60)} [{card}]")

@@ -10,7 +10,9 @@
 // come here: the wrapper launches b1_packed.cu's pk_select_kernel for
 // them, the binary design, which reads the DB once at the memory rate where
 // this kernel at N = 32 ran at a quarter of it. A group of 2 with one zero
-// query runs a single query here too, for comparison.
+// query runs a single query here too, for comparison. A launch of exactly 8
+// queries is one group of 8 in packed_match_g8.cu (N = 256, packed_gemm.cu's
+// warp-specialized design); match_packed_small_b_launch forwards it there.
 //
 // What bounds it on the H100: the two int8 products, 32 x 12,800 x 2 MACs
 // per (query, entry): 0.84 ms per query at 1M entries at 1,979 TOPS, against
@@ -108,23 +110,30 @@ int launch(const void* qt, const void* dp, const void* dm, long long n_entries, 
 }  // namespace
 }  // namespace mpc_iris
 
-// Entries per block for a query group of qg (2 or 4) queries; 0 for
+extern "C" int match_packed_g8_launch(const void* q, const void* dp, const void* dm,
+                                      long long n_entries, void* scratch, void* out,
+                                      int out_stride, void* stream);
+
+// Entries per block for a query group of qg (2, 4 or 8) queries; 0 for
 // another qg.
 extern "C" int packed_tile_entries(int qg) {
   using namespace mpc_iris::tile;
   switch (qg) {
     case 2: return Cfg<2, kMt[2]>::kEntries;
     case 4: return Cfg<4, kMt[4]>::kEntries;
+    case 8: return 128;  // packed_match_g8.cu: a cluster's tile, a product a block
     default: return 0;
   }
 }
 
-// One launch for nq queries in groups of qg (2 or 4; cudaErrorInvalidValue
-// for another qg): qt int8 [ceil(nq/qg)][400][2]
-// [32*qg][32] query slabs; dp, dm uint8 [n_entries][1600], 16-byte aligned;
-// part int32 [3 * nq * n_tiles] scratch (n_tiles = ceil(n_entries /
-// packed_tile_entries(qg))); out: int32 [3] rows of out_stride, the first
-// query at column 0. Launches on `stream`; returns cudaGetLastError().
+// One launch for nq queries in groups of qg (2 or 4; 8 for nq = 8 exactly;
+// cudaErrorInvalidValue otherwise): qt int8 [ceil(nq/qg)][400][2]
+// [32*qg][32] query slabs, or at qg = 8 packed_match_g8.cu's operand; dp, dm
+// uint8 [n_entries][1600], 16-byte aligned; part int32 [3 * nq * n_tiles]
+// scratch (n_tiles = ceil(n_entries / packed_tile_entries(qg)); at qg = 8
+// int32 [match_packed_g8_scratch(n_entries)]); out: int32 [3] rows of
+// out_stride, the first query at column 0. Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int match_packed_small_b_launch(int qg, const void* qt, const void* dp,
                                            const void* dm, long long n_entries, int nq,
                                            void* part, void* out, int out_stride, void* stream) {
@@ -135,6 +144,9 @@ extern "C" int match_packed_small_b_launch(int qg, const void* qt, const void* d
       return launch<2, tile::kMt[2]>(qt, dp, dm, n_entries, nq, part, out, out_stride, s);
     case 4:
       return launch<4, tile::kMt[4]>(qt, dp, dm, n_entries, nq, part, out, out_stride, s);
+    case 8:
+      if (nq != 8) return static_cast<int>(cudaErrorInvalidValue);
+      return match_packed_g8_launch(qt, dp, dm, n_entries, part, out, out_stride, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

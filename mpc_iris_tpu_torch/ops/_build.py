@@ -42,6 +42,9 @@ _SIGNATURES = {
         [ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
          ctypes.c_int, _P],
         ctypes.c_int),
+    "match_packed_g8_scratch": ([ctypes.c_longlong], ctypes.c_int),
+    "match_packed_g8_launch": (
+        [_P, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P], ctypes.c_int),
     "fractions_packed_small_b_launch": (
         [ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
          ctypes.c_longlong, _P],

@@ -12,6 +12,10 @@ DB to memory. Per group of :func:`_launch_plan`:
   bit-plane per K-step of the bit-plane-major K order
   (``csrc/packed_tile.cuh``); the query is laid out per call by
   :func:`_query_tiles` in the order they read it;
+- the match's launch of exactly 8 queries is one group of 8
+  (``csrc/packed_match_g8.cu``): their 256 rotation rows one N = 256 tile of
+  ``packed_gemm.cu``'s warp-specialized design, the exact selection fused,
+  the query rows in that kernel's K order (:func:`_query_tiles` at qg = 8);
 - a group of one query (B = 1, and a remainder of one, as at B = 5) takes
   ``csrc/b1_packed.cu``'s binary tile loop: four AND-popcount products of
   packed bits on the binary tensor cores, no unpack, the query as the packed
@@ -39,7 +43,12 @@ from mpc_iris_tpu_torch.ops.b1_packed import (
     start_query_check,
 )
 from mpc_iris_tpu_torch.ops.encode import pack_bits
-from mpc_iris_tpu_torch.ops.packed_gemm import packed_gemm, packed_gemm_reference, packed_query
+from mpc_iris_tpu_torch.ops.packed_gemm import (
+    _k_order_index,
+    packed_gemm,
+    packed_gemm_reference,
+    packed_query,
+)
 from mpc_iris_tpu_torch.ops.scan import (
     _fractions_scan_packed,
     _fused_rows,
@@ -47,7 +56,7 @@ from mpc_iris_tpu_torch.ops.scan import (
     prepare_query_planes,
 )
 from mpc_iris_tpu_torch.ops.select import N_ROT_PAD
-from mpc_iris_tpu_torch.utils.profiling import annotate
+from mpc_iris_tpu_torch.utils.profiling import annotate, count
 
 # Dispatch boundary of the packed small-batch kernel. It keeps the reference's
 # 1..8 so both packages route the same batches; the reference's value is a TPU
@@ -87,11 +96,18 @@ def _bitplane_index(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_bitplane_perm(), device=device)
 
 
-def _launch_plan(b: int) -> list[tuple[int, int, int]]:
+GROUP8 = 8  # the match's one group of 8 queries (csrc/packed_match_g8.cu)
+
+
+def _launch_plan(b: int, group8: bool = True) -> list[tuple[int, int, int]]:
     """The kernel launches for a batch of ``b``: (first query, queries, group
-    size). Groups of 4 queries (N = 128 rotation rows); a remainder of 1 or 2
-    gets its own group size, one of 3 a group of 4 with a zero query. A group
-    of 1 takes a binary kernel (module docstring)."""
+    size). Where ``group8`` (the match), a batch of exactly 8 is one group of
+    8 (N = 256 rotation rows). Otherwise groups of 4 queries (N = 128); a
+    remainder of 1 or 2 gets its own group size, one of 3 a group of 4 with a
+    zero query. A group of 1 takes a binary kernel (module docstring). Each
+    launch holds the same queries either way."""
+    if group8 and b == GROUP8:
+        return [(0, b, GROUP8)]
     plan = [(0, b - b % 4, 4)] if b >= 4 else []
     r = b % 4
     if r:
@@ -109,8 +125,18 @@ def _query_tiles(q_enc: torch.Tensor, q_mask: torch.Tensor, qg: int) -> torch.Te
     kernel takes them; encoding, then mask; and the N x 32-byte slab of K =
     b * 1600 + jj * 32 + (0..31) in the bit-plane-major order of
     :func:`_bitplane_perm`, as wgmma reads it from shared memory (K-major, no
-    swizzle): 8-row groups, the two 16-byte K halves, 8 rows, 16 bytes."""
+    swizzle): 8-row groups, the two 16-byte K halves, 8 rows, 16 bytes.
+
+    At qg = 8 (B <= 8): int8 [512, K], the 256 encoding rows (query q's
+    rotation r at row 32 q + r), then the 256 mask rows, each in
+    ``packed_gemm``'s K order (``kernel_k_order``: per 32-byte slab of
+    packed bytes its 8 bit-planes of 32 K), which the kernel loads by TMA."""
     b = q_enc.shape[0]
+    if qg == GROUP8:
+        rows = q_enc.new_zeros((2, GROUP8, N_ROT_PAD, BITS))
+        rows[0, :b, :N_ROTATIONS] = q_enc
+        rows[1, :b, :N_ROTATIONS] = q_mask
+        return rows.view(2 * GROUP8 * N_ROT_PAD, BITS)[:, _k_order_index(q_enc.device)]
     g = -(-b // qg)
     n = 32 * qg
     perm = _bitplane_index(q_enc.device)
@@ -221,15 +247,20 @@ match_packed_small_b.launches = 0
 
 def _launch_int8_group(lib, q_enc, q_mask, db_pat, db_msk, n_entries: int, qg: int,
                        out: torch.Tensor, out_stride: int) -> None:
-    """One launch (and its fold) of the int8 match kernel
-    (``csrc/packed_match.cu``) on the current stream for the queries in
-    groups of ``qg`` (2 or 4; the last group padded by zero queries), the
-    winners into ``out``'s first columns, rows ``out_stride`` apart."""
+    """One launch (and its fold) of the int8 match kernel on the current
+    stream for the queries in groups of ``qg`` (2 or 4, ``csrc/packed_match.cu``;
+    the last group padded by zero queries; or 8 queries as one group,
+    ``csrc/packed_match_g8.cu``, counted as ``iris.match.group8_launches``),
+    the winners into ``out``'s first columns, rows ``out_stride`` apart."""
     nq = q_enc.shape[0]
     with annotate("iris.query_prep"):
         qt = _query_tiles(q_enc, q_mask, qg)
-    n_tiles = -(-n_entries // lib.packed_tile_entries(qg))
-    part = torch.empty(3 * nq * n_tiles, dtype=torch.int32, device=q_enc.device)
+    if qg == GROUP8:
+        words = lib.match_packed_g8_scratch(n_entries)  # its partials and its exchange
+        count("iris.match.group8_launches")
+    else:
+        words = 3 * nq * -(-n_entries // lib.packed_tile_entries(qg))
+    part = torch.empty(words, dtype=torch.int32, device=q_enc.device)
     check_launch("match_packed_small_b", lib.match_packed_small_b_launch(
         qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
         part.data_ptr(), out.data_ptr(), out_stride, torch.cuda.current_stream().cuda_stream))
@@ -288,7 +319,8 @@ def fractions_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk) -> torch.T
 def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
                              db_pat: torch.Tensor, db_msk: torch.Tensor) -> torch.Tensor:
     """Small-batch audit spectrum over a bit-packed DB: one kernel launch per
-    query group size of :func:`_launch_plan`.
+    query group size of :func:`_launch_plan` without the group of 8 (a batch
+    of 8 runs as two groups of 4 in one launch).
 
     Arguments as for :func:`match_packed_small_b`. Returns int16
     [2, B, C*c]: per (query, entry) the min-over-31-rotations exact
@@ -309,7 +341,7 @@ def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     checks = []
     with torch.cuda.device(q_enc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        for q0, nq, qg in _launch_plan(b):
+        for q0, nq, qg in _launch_plan(b, group8=False):
             qe, qm = q_enc[q0:q0 + nq], q_mask[q0:q0 + nq]
             if qg == 1:
                 with annotate("iris.query_prep"):
@@ -344,13 +376,16 @@ def _canary_inputs(device, pat, msk, qpat, qmsk):
 
 
 def check_match_packed_small_b(device) -> None:
-    """Kernel canary: both CUDA kernels (B = 3, a group of 4 with a zero
-    query; B = 1, the binary kernel) equal the plain version, bit for bit,
-    on planted ties, a ragged tile edge and a padded tail chunk."""
+    """Kernel canary: the three CUDA kernels (B = 8, the group of 8; B = 3, a
+    group of 4 with a zero query; B = 1, the binary kernel) equal the plain
+    version, bit for bit, on planted ties, a ragged tile edge and a padded
+    tail chunk; a third copy of row 129 at 193 lies in the other consumer
+    warpgroup of its 128-entry tile in the group of 8."""
     rng = np.random.default_rng(0xB17)
-    pat, msk, qpat, qmsk = planted_packed_case(rng)  # 700 entries
+    pat, msk, qpat, qmsk = planted_packed_case(rng, b=8)  # 700 entries
+    pat[193], msk[193] = pat[129], msk[129]
     q_enc, q_mask, db_pat, db_msk = _canary_inputs(device, pat, msk, qpat, qmsk)
-    for b in (3, 1):
+    for b in (8, 3, 1):
         args = (q_enc[:b], q_mask[:b], db_pat, db_msk)
         got = match_packed_small_b(*args).cpu()
         want = match_packed_small_b_reference(*args).cpu()

@@ -18,6 +18,7 @@ from mpc_iris_tpu_torch.models.engines import (
     match_scan_packed_auto,
     prepare_query_planes,
 )
+from mpc_iris_tpu_torch.ops import _build
 from mpc_iris_tpu_torch.ops import b1_packed as tb1
 from mpc_iris_tpu_torch.ops import chacha as tcha
 from mpc_iris_tpu_torch.ops import dot as tdot
@@ -106,6 +107,97 @@ def test_fractions_packed_small_b_kernel(cuda, b, chunk):
     assert got.dtype == torch.int16 and torch.equal(got, want)
     assert int(got[0, 0, 129]) == 0 and int(got[0, 0, 257]) == 0
     assert not got[:, :, 700:].any()
+
+
+# The group of 8 (csrc/packed_match_g8.cu, B = 8): 64 entries (the second
+# consumer warpgroup of the only tile wholly past the end), 700 and 1,000
+# (no 128-entry tile divides them), 20,001 (more tiles than an H100's
+# clusters: each cluster walks several, with copies planted a walk step of
+# 66 tiles apart)
+GROUP8_N = [64, 700, 1000, 20_001]
+
+
+def _group8_case(cuda, n: int):
+    """8 queries and a DB of n entries in chunks of 304 (a zero-padded tail):
+    query 0's self-match at 129 copied to 193 (the other consumer warpgroup
+    of its tile) and 257 (another tile), at 20,001 also 129 + 128 x 66 and
+    n - 3; sparse masks (rotation ties), an all-invalid entry (7) and a zero
+    query (2) from planted_packed_case. At 64 entries: random entries, a
+    copy of row 5 at 40 and query 0 = row 40."""
+    rng = np.random.default_rng(n)
+    if n < 700:
+        pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+        msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+        pat[40], msk[40] = pat[5], msk[5]
+        qpat, qmsk = pat[rng.integers(0, n, 8)].copy(), msk[rng.integers(0, n, 8)].copy()
+        qpat[0], qmsk[0] = pat[40], msk[40]
+        want0 = 5
+    else:
+        pat, msk, qpat, qmsk = tpm.planted_packed_case(rng, n=n, b=8)
+        for e in (193, 257) + ((129 + 128 * 66, n - 3) if n > 10_000 else ()):
+            pat[e], msk[e] = pat[129], msk[129]
+        want0 = 129
+    db_pat = torch.from_numpy(_pad_chunks(pat, 304)[0]).to(cuda)
+    db_msk = torch.from_numpy(_pad_chunks(msk, 304)[0]).to(cuda)
+    q_enc, q_mask = prepare_query_planes(torch.from_numpy(qpat).to(cuda),
+                                         torch.from_numpy(qmsk).to(cuda))
+    return (q_enc, q_mask, db_pat, db_msk), want0
+
+
+@pytest.mark.parametrize("n", GROUP8_N)
+def test_match_group8_kernel(cuda, n):
+    """B = 8 launches the group of 8 once, counted as
+    ``iris.match.group8_launches`` under a capture, and equals the plain
+    version and the groups-of-4 loop on the card, bit for bit; ties go to
+    the lowest index, the zero query to (0, 0, 0)."""
+    args, want0 = _group8_case(cuda, n)
+    name = "iris.match.group8_launches"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        before = tpm.match_packed_small_b.launches
+        counted = profiling.snapshot()["counters"].get(name, 0)
+        got = tpm.match_packed_small_b(*args)
+        torch.cuda.synchronize()
+        assert tpm.match_packed_small_b.launches == before + 1
+        assert profiling.snapshot()["counters"].get(name, 0) - counted == 1
+    want = tpm.match_packed_small_b_reference(*args)
+    assert torch.equal(got, want)
+    fours = torch.empty_like(got)
+    n_entries = args[2].shape[0] * args[2].shape[1]
+    tpm._launch_int8_group(_build.library(), *args, n_entries, 4, fours, 8)
+    assert torch.equal(fours, want)
+    assert int(got[2, 0]) == want0 and int(got[0, 0]) == 0
+    if n >= 700:
+        assert int(got[1, 2]) == 0 and int(got[2, 2]) == 0  # the zero query
+
+
+def test_sharded_match_b8_runs_group8_on_every_shard(cuda):
+    """ShardedPlaintextEngine on four shards of one card ([cuda] x 4) at
+    B = 8: each shard launches the group of 8 once (4 counted under a
+    capture), and the winners equal the single-card engine's; exact copies
+    of entry 100 on every shard tie to the lowest global index."""
+    from mpc_iris_tpu_torch.parallel import ShardedPlaintextEngine, make_mesh
+
+    rng = np.random.default_rng(22)
+    n = 4 * 2048 + 77
+    pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    for e in (300, 600, 900, n - 1):  # chunks 1, 2, 3 of 256 and the tail
+        pat[e], msk[e] = pat[100], msk[100]
+    q = np.concatenate([[900, 7, 2100, 4000], rng.integers(0, n, 4)])
+    sharded = ShardedPlaintextEngine(pat, msk, make_mesh(4, devices=[cuda] * 4), chunk=256)
+    single = PlaintextEngine(pat, msk, device=cuda, chunk=256)
+
+    def rows(res):
+        return [(r.index, r.distance, r.numerator, r.denominator) for r in res]
+
+    name = "iris.match.group8_launches"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        counted = profiling.snapshot()["counters"].get(name, 0)
+        got = rows(sharded.match(pat[q], msk[q]))
+        torch.cuda.synchronize()
+        assert profiling.snapshot()["counters"].get(name, 0) - counted == 4
+    assert got == rows(single.match(pat[q], msk[q]))
+    assert [g[:2] for g in got[:4]] == [(100, 0.0), (7, 0.0), (2100, 0.0), (4000, 0.0)]
 
 
 def test_packed_kernel_canaries(cuda):

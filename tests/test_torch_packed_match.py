@@ -2,6 +2,10 @@
 plain version on the CPU) against the JAX kernel match_packed_small_b in
 interpret mode and the JAX packed scan. Exact: integers equal."""
 
+import os
+import subprocess
+import sys
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -87,13 +91,19 @@ def _fragments(db_pat, db_msk):
 def _kernel_arithmetic(q_enc, q_mask, db_pat, db_msk, qg):
     """The CUDA kernels' arithmetic, emulated in numpy on the operands they
     are given: the query slabs of ``_query_tiles`` (un-tiled from wgmma's
-    shared-memory layout) and the register fragments of :func:`_fragments`,
-    as int32 products over the 400 K-steps, then num = (den - dot) >> 1.
-    Returns (num, den) int32 [B, 32, E]."""
+    shared-memory layout; at qg = 8 the [512, K] rows in packed_gemm's K
+    order, which is the fragments' order) and the register fragments of
+    :func:`_fragments` (at qg = 8 the A tiles the kernel expands into shared
+    memory, the same values), as int32 products over the 400 K-steps, then
+    num = (den - dot) >> 1. Returns (num, den) int32 [B, 32, E]."""
     qt = tpm._query_tiles(q_enc, q_mask, qg).numpy()
-    g, n = qt.shape[0], 32 * qg
-    # g, jj, bit, o, nh, kh, nl, kl -> o, g, nh, nl, jj, bit, kh, kl = [2, G*N, K]
-    qk = qt.transpose(3, 0, 4, 6, 1, 2, 5, 7).reshape(2, g * n, -1)
+    g, n = -(-q_enc.shape[0] // qg), 32 * qg
+    if qg == tpm.GROUP8:
+        assert qt.shape == (2 * n, 50 * 8 * tpm.SLAB)
+        qk = qt.reshape(2, n, -1)
+    else:
+        # g, jj, bit, o, nh, kh, nl, kl -> o, g, nh, nl, jj, bit, kh, kl = [2, G*N, K]
+        qk = qt.transpose(3, 0, 4, 6, 1, 2, 5, 7).reshape(2, g * n, -1)
     ae, am = _fragments(db_pat, db_msk)
     # float64 products are exact here (|sums| <= 12,800)
     dot = (qk[0].astype(np.float64) @ ae.reshape(ae.shape[0], -1).T.astype(np.float64))
@@ -148,12 +158,48 @@ def test_kernel_arithmetic_equals_reference(rng, b, n_chunks, chunk):
     assert got[2, 0] == 129
 
 
+def test_group_of_eight_traps_equal_jax(rng):
+    """B = 8 as the group of 8 computes it (its operand's arithmetic,
+    :func:`_kernel_arithmetic` at qg = 8, then the exact selection) equals
+    the JAX kernel in interpret mode and the JAX scan on ties that the
+    kernel splits: query 0's self-match at 129, copied to 193 (the other
+    consumer warpgroup of its 128-entry tile) and 257 (another tile); the
+    sparse masks' rotation ties; an all-invalid entry (7); a zero query (2);
+    1,000 entries and a zero-padded tail to 1,024."""
+    pat, msk, qpat, qmsk = tpm.planted_packed_case(rng, n=1000, b=8)
+    pat[193], msk[193] = pat[129], msk[129]
+    port, jk, js = _both(qpat, qmsk, pat, msk)
+    pat_c, _ = teng._pad_chunks(pat, 512)
+    msk_c, _ = teng._pad_chunks(msk, 512)
+    q_enc, q_mask = teng.prepare_query_planes(_t(qpat), _t(qmsk))
+    num, den = _kernel_arithmetic(q_enc, q_mask, _t(pat_c), _t(msk_c), tpm.GROUP8)
+    n_r, d_r, _ = tdec.fraction_min_rotations(_t(num), _t(den), axis=1)
+    got = torch.stack(tdec.fraction_argmin(n_r, d_r)).numpy()
+    np.testing.assert_array_equal(got, jk)
+    np.testing.assert_array_equal(port, jk)
+    np.testing.assert_array_equal(port, js)
+    assert got[2, 0] == 129 and got[0, 0] == 0
+    assert got[1, 2] == 0 and got[2, 2] == 0
+
+
 @pytest.mark.parametrize("b,plan", [
     (1, [(0, 1, 1)]), (2, [(0, 2, 2)]), (3, [(0, 3, 4)]), (4, [(0, 4, 4)]),
-    (7, [(0, 4, 4), (4, 3, 4)]), (8, [(0, 8, 4)]), (13, [(0, 12, 4), (12, 1, 1)]),
+    (7, [(0, 4, 4), (4, 3, 4)]), (8, [(0, 8, 8)]), (13, [(0, 12, 4), (12, 1, 1)]),
     (33, [(0, 32, 4), (32, 1, 1)])])
 def test_launch_plan_covers_the_batch(b, plan):
     assert tpm._launch_plan(b) == plan
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 5, 7, 8, 13])
+def test_spectrum_plan_keeps_groups_of_four(b):
+    """Kernel (c) has no group of 8: at B = 8 it keeps one launch of two
+    groups of 4, and every other batch the match's plan; each launch holds
+    the match's queries."""
+    plan = tpm._launch_plan(b, group8=False)
+    assert all(qg in (1, 2, 4) for *_, qg in plan)
+    assert [q[:2] for q in plan] == [q[:2] for q in tpm._launch_plan(b)]
+    if b != 8:
+        assert plan == tpm._launch_plan(b)
 
 
 def test_small_b_ok_policy():
@@ -179,3 +225,15 @@ def test_cpu_tensors_never_launch(rng):
     db_pat, db_msk = (_t(x).reshape(1, 64, BITS_BYTES) for x in (pat, msk))
     tpm.match_packed_small_b(q_enc, q_mask, db_pat, db_msk)
     assert tpm.match_packed_small_b.launches == before
+
+
+def test_group8_probe_rehearses_on_the_cpu():
+    """``scripts/packed_match_g8_probe_torch.py --device cpu``: the plan and
+    the operand's shape at B = 8, and the plain version's winners on the
+    probe's planted cases (query 0 the self-match at 5, then at 129)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "scripts/packed_match_g8_probe_torch.py", "--device",
+                          "cpu"], cwd=repo, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "rehearsal N=64: winners [5," in out.stdout
+    assert "rehearsal N=700: winners [129," in out.stdout
