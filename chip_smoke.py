@@ -595,7 +595,7 @@ def probe_phase(dev: torch.device, packed, qpat, qmsk, card: str) -> list:
         31 * bb, BITS) for bb in (1, 8)}
     lo, _ = share_planes_kernel(kw, 0, 0, chunk)
     q_enc = planes(qpat[:128], qmsk[:128], dev)[0]
-    enc0, _ = _unpack_encode_chunk(packed.db_pat[0], packed.db_msk[0])
+    enc0, _ = packed._db.encoded(0)
     products = {"keyed B=1": (q_nat[1], lo), "keyed B=8": (q_nat[8], lo),
                 "scan B=128": (_fused_rows(q_enc), enc0.contiguous())}
     gemm_err = 0
@@ -724,7 +724,7 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
     the int8 kernel at one query, s1 and s2 beside (a) on s1's inputs.
     Returns the seven kernels' entries of the kernels line."""
     t_phase = time.perf_counter()
-    pat, msk = packed.db_pat.reshape(-1, BITS_BYTES), packed.db_msk.reshape(-1, BITS_BYTES)
+    pat, msk = (p.reshape(-1, BITS_BYTES) for p in packed._db.planes)
     n = pat.shape[0]
     qp, qm = (torch.from_numpy(x[:1].copy()).to(dev) for x in (qpat, qmsk))
     qe, qmk = prep_query(qp, qm)
@@ -749,11 +749,11 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
           "every b1 and select probe kernel launched on its path")
 
     # ---- correctness
-    int8_one = match_packed_int8_pairs(q_enc, q_mask, packed.db_pat, packed.db_msk)
+    int8_one = match_packed_int8_pairs(q_enc, q_mask, *packed._db.planes)
     check(torch.equal(p2, int8_one), f"pk_select N={n}: winner {p2.ravel().tolist()} equals "
           f"the int8 kernel at qg=2, nq=1 {int8_one.ravel().tolist()}")
-    check(torch.equal(p2, _match_scan_packed(q_enc, q_mask, packed.db_pat, packed.db_msk,
-                                             fused=False)), "pk_select: equals the unfused scan")
+    check(torch.equal(p2, _match_scan_packed(q_enc, q_mask, *packed._db.planes, fused=False)),
+          "pk_select: equals the unfused scan")
     (n1, d1, i1), (n2, d2, i2) = p1.ravel().tolist(), p2.ravel().tolist()
     check(i1 == i2 and n1 * d2 == n2 * d1 and d1 > 0,
           f"pk_dot N={n}: winner {p1.ravel().tolist()} has pk_select's index and fraction")
@@ -802,8 +802,7 @@ def b1_select_probe_phase(dev: torch.device, packed, qpat, qmsk, seed: int, card
           f"{torch.equal(s2['i32'], s2['i16'])}")
 
     # ---- times (CUDA events)
-    b_ms = cuda_ms(lambda: match_packed_int8_pairs(q_enc, q_mask, packed.db_pat,
-                                                   packed.db_msk), 10)
+    b_ms = cuda_ms(lambda: match_packed_int8_pairs(q_enc, q_mask, *packed._db.planes), 10)
     w_ms = cuda_ms(lambda: pk_dot_winner(pk_dot(qe, qmk, pat, msk)), 5)
     rows = {"pk_dot": (lambda: pk_dot(qe, qmk, pat, msk),
                        lambda: pk_dot_reference(qe, qmk, pat, msk),
@@ -1060,7 +1059,8 @@ def check_shard_kernels(engines, sq, sm) -> dict:
     err = {k.__name__: 0 for k, _ in pairs}
     for eng, shape, slices in engines:
         for i, per_dev in eng._db.items():
-            for d_, (a, b) in per_dev.items():
+            for d_, db in per_dev.items():
+                a, b = db.planes
                 for rows_ in slices:
                     q_enc, q_mask = planes(sq[rows_], sm[rows_], d_)
                     for kern, ref in pairs:
@@ -2106,11 +2106,11 @@ def main() -> int:
     for (storage, eng, bb, qp, qm), res in zip(requests, served):
         q_enc, q_mask = planes(qp[:bb], qm[:bb], dev)
         if storage == "dense":
-            plain = _match_scan(q_enc, q_mask, eng.db_enc, eng.db_mask)
+            plain = _match_scan(q_enc, q_mask, *eng._db.planes)
         elif bb <= 8:
-            plain = match_packed_small_b_reference(q_enc, q_mask, eng.db_pat, eng.db_msk)
+            plain = match_packed_small_b_reference(q_enc, q_mask, *eng._db.planes)
         else:
-            plain = _match_scan_packed(q_enc, q_mask, eng.db_pat, eng.db_msk, fused=False)
+            plain = _match_scan_packed(q_enc, q_mask, *eng._db.planes, fused=False)
         check(torch.equal(triples(res), plain.cpu()),
               f"{storage} B={bb}: winners equal the plain path on the card")
         pl, dp = (planted, dup) if eng is packed else (dplanted, ddup)
@@ -2141,10 +2141,10 @@ def main() -> int:
     # the packed one is the spectrum scan the engine itself runs at B = 13
     q_over = slice(N_PLANTED, N_PLANTED + 1)  # a random query
     plain = {bb: host_spectrum(fractions_packed_small_b_reference(
-        *planes(qpat[:bb], qmsk[:bb], dev), packed.db_pat, packed.db_msk), packed.count)
+        *planes(qpat[:bb], qmsk[:bb], dev), *packed._db.planes), packed.count)
         for bb in (1, 8, 13)}
     plain_dense = host_spectrum(_fractions_scan(
-        *planes(dqpat[:8], dqmsk[:8], dev), dense.db_enc, dense.db_mask), dense.count)
+        *planes(dqpat[:8], dqmsk[:8], dev), *dense._db.planes), dense.count)
     t_over, e_over, rank_over = overflow_threshold(plain[13][:, N_PLANTED])
 
     audit_requests = [("packed", packed, 1, qpat, qmsk), ("packed", packed, 8, qpat, qmsk),
@@ -2232,7 +2232,7 @@ def main() -> int:
     kernels = []
     # (a) select_chunk at the packed scan's shapes: one chunk's products
     q_enc, q_mask = planes(qpat, qmsk, dev)
-    enc0, m0 = _unpack_encode_chunk(packed.db_pat[0], packed.db_msk[0])
+    enc0, m0 = packed._db.encoded(0)
     a_rows = {}
     for bb in (13, 128):
         dot = dot_bits_batch(_fused_rows(q_enc[:bb]), enc0)
@@ -2262,7 +2262,7 @@ def main() -> int:
     # same two library calls, torch._int_mm, which the scan no longer makes
     qe128, qm128 = _fused_rows(q_enc[:128]), _fused_rows(q_mask[:128])
     query = packed_query(qe128, qm128)
-    pat0, msk0 = packed.db_pat[0], packed.db_msk[0]
+    pat0, msk0 = (p[0] for p in packed._db.planes)
     got = torch.stack(packed_gemm(query, pat0, msk0))
     err = int((got - torch.stack(packed_gemm_reference(query, pat0, msk0))).abs().max())
     del got
@@ -2296,7 +2296,7 @@ def main() -> int:
     lib = _build.library()
     b_rows = {}
     for bb in SWEEP:
-        args4 = (q_enc[:bb], q_mask[:bb], packed.db_pat, packed.db_msk)
+        args4 = (q_enc[:bb], q_mask[:bb], *packed._db.planes)
         got = match_packed_small_b(*args4)
         want = match_packed_small_b_reference(*args4)
         err = int((got - want).abs().max())
@@ -2315,14 +2315,14 @@ def main() -> int:
         if bb == 8:
             # the group of 8 beside the loop it replaced there, two groups of 4
             fours = torch.empty_like(got)
-            n_slab = packed.db_pat.shape[0] * packed.db_pat.shape[1]
+            n_slab = packed._db.n_chunks * packed._db.chunk
             four = lambda: _launch_int8_group(lib, *args4, n_slab, 4, fours, 8)  # noqa: E731
             four()
             check(torch.equal(fours, want), "match_packed_small_b B=8 as groups of 4 equals "
                   "the plain version")
             print(f"  B=8: the group of 8 {k_ms:.3f} ms, as two groups of 4 "
                   f"{cuda_ms(four, 5):.3f} ms [{card}]")
-    args4 = (q_enc[:16], q_mask[:16], packed.db_pat, packed.db_msk)
+    args4 = (q_enc[:16], q_mask[:16], *packed._db.planes)
     print(f"SM clock and power with match_packed_small_b B=16 running: "
           f"{clocks_under(lambda: match_packed_small_b(*args4), 60)} [{card}]")
     err, k_ms, p_ms, bound_ms, bound_by = b_rows[8]
@@ -2338,7 +2338,7 @@ def main() -> int:
     # past the boundary; and the compaction of its B = 8 spectrum
     c_rows = {}
     for bb in SWEEP:
-        args4 = (q_enc[:bb], q_mask[:bb], packed.db_pat, packed.db_msk)
+        args4 = (q_enc[:bb], q_mask[:bb], *packed._db.planes)
         got = fractions_packed_small_b(*args4)
         want = fractions_packed_small_b_reference(*args4)
         err = int((got.int() - want.int()).abs().max())
@@ -2372,14 +2372,13 @@ def main() -> int:
     err, k_ms, p_ms, bound_ms, bound_by = c_rows[1]
     q1 = _one_query_operand(q_enc[:1], q_mask[:1])
     spectrum = torch.empty((2, 1, packed.count), dtype=torch.int16, device=dev)
-    kernel_ms = cuda_ms(lambda: launch_fractions("pk_fractions", lib, q1, packed.db_pat,
-                                                 packed.db_msk, packed.count, spectrum,
-                                                 packed.count), 20)
-    check(torch.equal(spectrum, fractions_packed_small_b(q_enc[:1], q_mask[:1], packed.db_pat,
-                                                         packed.db_msk)),
+    kernel_ms = cuda_ms(lambda: launch_fractions("pk_fractions", lib, q1, *packed._db.planes,
+                                                 packed.count, spectrum, packed.count), 20)
+    check(torch.equal(spectrum, fractions_packed_small_b(q_enc[:1], q_mask[:1],
+                                                         *packed._db.planes)),
           "pk_fractions: the bare launch equals the call")
-    pair_ms = cuda_ms(lambda: fractions_packed_small_b(q_enc[:2], q_mask[:2], packed.db_pat,
-                                                       packed.db_msk), 5)
+    pair_ms = cuda_ms(lambda: fractions_packed_small_b(q_enc[:2], q_mask[:2],
+                                                       *packed._db.planes), 5)
     print(f"time kernel pk_fractions N={packed.count} B=1: {k_ms:.4f} ms as a call, "
           f"{kernel_ms:.4f} ms as a kernel; bound {bound_ms:.4f} ms ({bound_by}), "
           f"{bound_ms / k_ms:.1%} / {bound_ms / kernel_ms:.1%} of it; plain {p_ms:.3f} ms; "

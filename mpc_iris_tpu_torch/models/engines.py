@@ -1,6 +1,9 @@
 """Plaintext min-distance search over a device-resident template DB
 (counterpart of ``mpc_iris_tpu/models/engines.py``, plaintext slice).
 
+Both plaintext engines run one request layer, ``_PlaintextRequests``, over
+:class:`PlainDB`, the owner of a device's DB and its storage format.
+
 The request path of ``PlaintextEngine.match``:
 
 1. ``prepare_query_planes``: unpack, ring-encode and rotation-expand the
@@ -201,7 +204,7 @@ def fractions_scan_packed_auto(q_enc, q_mask, db_pat, db_msk) -> torch.Tensor:
     with annotate("iris.launch"):
         if small_b_ok(q_enc.shape[0]):
             return fractions_packed_small_b(q_enc, q_mask, db_pat, db_msk)
-        return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk, kernel=True)
+        return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk, fused=True)
 
 
 def _compact_under_device(nd: torch.Tensor, t_hi, k: int):
@@ -408,47 +411,64 @@ def _put_u8(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=np.uint8)).to(device)
 
 
-class PlaintextEngine:
-    """Plaintext min-distance search over a device-resident template DB."""
+class PlainDB:
+    """One device's chunked plaintext DB in one storage format, chosen here
+    once: "packed" keeps the raw bit planes, uint8 [C, c, 1600] (3.2 KB per
+    entry); "dense" unpacks and encodes them on the device, chunk by chunk,
+    into int8 [C, c, K] encodings and masks (25.6 KB per entry). ``planes``
+    holds the pair; the engines call :meth:`match`, :meth:`spectrum` and
+    :meth:`encoded` whichever it is."""
 
-    def __init__(self, patterns_packed: np.ndarray, masks_packed: np.ndarray, *,
-                 device="cuda", chunk: int = DEFAULT_CHUNK, storage: str = "auto"):
-        """Args:
-        patterns_packed, masks_packed: uint8 [N, 1600] packed planes (host).
-        device: where the DB lives and the search runs; the card by
-          default, and a CUDA device without a card raises.
-        chunk: DB entries per scan step (rounded up to a multiple of 8 on the
-          card, where the int8 product needs it; the padded rows never win).
-        storage: "packed" keeps the raw bit planes (3.2 KB per entry) and
-          unpacks per chunk; "dense" keeps int8 encodings and masks (25.6 KB
-          per entry); "auto" is packed, as in the reference.
-        """
-        self.device = _engine_device(device, "PlaintextEngine")
+    def __init__(self, pat: torch.Tensor, msk: torch.Tensor, storage: str):
+        """pat, msk: the device's packed uint8 [C, c, 1600] planes, padded
+        rows all zero; storage: as :meth:`resolve` takes it."""
+        self.storage = self.resolve(storage)
+        self.n_chunks, self.chunk = pat.shape[:2]
+        if self.storage == "packed":
+            self.planes = (pat, msk)
+            self._match, self._spectrum = match_scan_packed_auto, fractions_scan_packed_auto
+            self._encoded = _unpack_encode_chunk
+        else:
+            enc = torch.empty((self.n_chunks, self.chunk, BITS), dtype=torch.int8,
+                              device=pat.device)
+            mask = torch.empty_like(enc)
+            for c in range(self.n_chunks):
+                enc[c], mask[c] = _unpack_encode_chunk(pat[c], msk[c])
+            self.planes = (enc, mask)
+            self._match, self._spectrum = match_scan_auto, _fractions_scan
+            self._encoded = lambda enc_c, mask_c: (enc_c, mask_c)
+
+    @staticmethod
+    def resolve(storage: str) -> str:
+        """"auto" is packed, as in the reference; a name other than
+        "packed" or "dense" raises."""
         if storage == "auto":
             storage = "packed"
         if storage not in ("packed", "dense"):
             raise ValueError(f"unknown storage {storage!r}")
-        kernel_self_test(self.device)
-        n = patterns_packed.shape[0]
-        chunk = _engine_chunk(chunk, n, self.device)
-        self.storage = storage
-        self.chunk = chunk
-        self.db_pat = self.db_msk = self.db_enc = self.db_mask = None
-        with annotate("iris.setup.db_load"):
-            pat_c, self.count = _pad_chunks(
-                np.ascontiguousarray(patterns_packed, dtype=np.uint8), chunk)
-            msk_c, _ = _pad_chunks(np.ascontiguousarray(masks_packed, dtype=np.uint8), chunk)
-            db_pat = torch.from_numpy(np.require(pat_c, requirements="CW")).to(self.device)
-            db_msk = torch.from_numpy(np.require(msk_c, requirements="CW")).to(self.device)
-            if storage == "packed":
-                self.db_pat, self.db_msk = db_pat, db_msk
-            else:
-                # unpack on the device, one chunk at a time
-                shape = (db_pat.shape[0], chunk, BITS)
-                self.db_enc = torch.empty(shape, dtype=torch.int8, device=self.device)
-                self.db_mask = torch.empty(shape, dtype=torch.int8, device=self.device)
-                for c in range(shape[0]):
-                    self.db_enc[c], self.db_mask[c] = _unpack_encode_chunk(db_pat[c], db_msk[c])
+        return storage
+
+    def match(self, q_enc, q_mask) -> torch.Tensor:
+        """Prepared query planes -> int32 [3, B] (numerator, denominator,
+        index in this DB)."""
+        return self._match(q_enc, q_mask, *self.planes)
+
+    def spectrum(self, q_enc, q_mask) -> torch.Tensor:
+        """Prepared query planes -> the int16 [2, B, C*c] fraction spectrum."""
+        return self._spectrum(q_enc, q_mask, *self.planes)
+
+    def encoded(self, c: int):
+        """Chunk c as int8 [c, K] (encodings, masks)."""
+        return self._encoded(self.planes[0][c], self.planes[1][c])
+
+
+class _PlaintextRequests:
+    """The request layer of both plaintext engines (:class:`PlaintextEngine`,
+    ``parallel.ShardedPlaintextEngine``), each stage in its span. An engine
+    supplies ``device``, ``count``, ``_n_padded`` (its padded entry count),
+    ``match_arrays`` and ``_spectrum``."""
+
+    _find_under_spectrum = "min_fractions output"  # the name in find_under's guard error
 
     def _queries(self, patterns_packed, masks_packed):
         with annotate("iris.query_prep"):
@@ -464,68 +484,26 @@ class PlaintextEngine:
                 n, d, i = out.cpu().numpy()
             return _results_from_triples(n, d, i)
 
-    def match_arrays(self, q_enc, q_mask) -> torch.Tensor:
-        """Prepared query planes -> int32 [3, B] stacked (numerator,
-        denominator, DB index) on the engine's device."""
-        if self.storage == "packed":
-            return match_scan_packed_auto(q_enc, q_mask, self.db_pat, self.db_msk)
-        return match_scan_auto(q_enc, q_mask, self.db_enc, self.db_mask)
-
-    def distances(self, patterns_packed, masks_packed) -> np.ndarray:
-        """Full f64 distance matrix [B, N] (for tests and small DBs),
-        bit-identical to the scalar oracle ``Template.distance`` per pair."""
-        q_enc, q_mask = self._queries(patterns_packed, masks_packed)
-        packed = self.storage == "packed"
-        n_chunks = (self.db_pat if packed else self.db_enc).shape[0]
-        out = []
-        for c in range(n_chunks):
-            if packed:
-                enc_c, mask_c = _unpack_encode_chunk(self.db_pat[c], self.db_msk[c])
-            else:
-                enc_c, mask_c = self.db_enc[c], self.db_mask[c]
-            num, den = _plaintext_chunk_fractions(q_enc, q_mask, enc_c, mask_c)
-            num, den = num.cpu().numpy(), den.cpu().numpy()
-            vals = decode_distance_batch_np(
-                # decode takes u16 "dots": dot = den - 2*num (exact ints)
-                (den - 2 * num).astype(np.int64) & 0xFFFF,
-                den,
-            ).reshape(num.shape[0], -1)
-            out.append(vals)
-        return np.concatenate(out, axis=1)[:, : self.count]
-
-    def _guard_spectrum(self, b: int) -> None:
+    def _guard_spectrum(self, b: int, what: str) -> None:
         """The spectrum costs 4 bytes per (query, padded entry) on the
-        device, on both the full and the compacted path (mirrors
-        ``PlaintextEngine._guard_spectrum``)."""
-        db = self.db_pat if self.storage == "packed" else self.db_enc
-        out_bytes = 4 * b * db.shape[0] * db.shape[1]
+        device, on both the full and the compacted path (sharded, it is
+        reassembled on one device, and whole on every process of a party)."""
+        out_bytes = 4 * b * self._n_padded
         if out_bytes > 4 * (1 << 30):
-            raise ValueError(f"min_fractions output would be {out_bytes / 2**30:.1f} GiB "
+            raise ValueError(f"{what} would be {out_bytes / 2**30:.1f} GiB "
                              f"on device (B={b}); split the query batch")
-
-    def _spectrum(self, q_enc, q_mask) -> torch.Tensor:
-        """Prepared query planes -> the int16 [2, B, N_padded] fraction
-        spectrum on the engine's device. Followed by
-        :func:`_compact_under_device` it stands for the reference's fused
-        ``_fractions_under_compact``, ``_fractions_under_compact_packed``,
-        ``_fractions_under_compact_packed_smallb`` and
-        ``fractions_under_compact_packed_auto``: without ``jit`` each is
-        these two calls."""
-        if self.storage == "packed":
-            return fractions_scan_packed_auto(q_enc, q_mask, self.db_pat, self.db_msk)
-        return _fractions_scan(q_enc, q_mask, self.db_enc, self.db_mask)
 
     def _host_spectrum(self, nd: torch.Tensor) -> np.ndarray:
         return host_spectrum(nd, self.count)
 
     def min_fractions(self, patterns_packed, masks_packed) -> np.ndarray:
         """Per-entry minimal exact fractions: uint16 [2, B, N], the
-        min-over-31-rotations (numerator, denominator) per (query, entry),
-        the full distance spectrum (``fractions_to_f64_np`` decodes it
-        exactly as ``Template.distance``). Costs 4 * B bytes of device memory
-        per entry, so it is meant for audit-sized batches."""
+        min-over-31-rotations (numerator, denominator) per (query, entry) in
+        DB order, the full distance spectrum (``fractions_to_f64_np``
+        decodes it exactly as ``Template.distance``). Costs 4 * B bytes of
+        device memory per entry, so it is meant for audit-sized batches."""
         q_enc, q_mask = self._queries(patterns_packed, masks_packed)
-        self._guard_spectrum(q_enc.shape[0])
+        self._guard_spectrum(q_enc.shape[0], "min_fractions output")
         return self._host_spectrum(self._spectrum(q_enc, q_mask))
 
     def find_under(self, patterns_packed, masks_packed, threshold: float,
@@ -542,14 +520,15 @@ class PlaintextEngine:
         candidates cross to the host, O(k), where the exact compare settles
         them. When a query has more candidates, the whole spectrum crosses
         instead (the same device spectrum, not a second pass), so results
-        are identical in every case.
+        are identical in every case. The policy is
+        :func:`orchestrate_find_under`'s.
 
         ``limit``: raise :class:`AuditLimitExceeded` when a query matches
         more than this many entries.
         """
         with annotate("iris.find_under", request=True):
             q_enc, q_mask = self._queries(patterns_packed, masks_packed)
-            self._guard_spectrum(q_enc.shape[0])
+            self._guard_spectrum(q_enc.shape[0], self._find_under_spectrum)
             spectrum = functools.cache(lambda: self._spectrum(q_enc, q_mask))
 
             def compact(t_hi, k):
@@ -560,6 +539,68 @@ class PlaintextEngine:
             return orchestrate_find_under(
                 self.count, q_enc.shape[0], threshold, limit, compact_k,
                 lambda: self._host_spectrum(spectrum()), compact)
+
+
+class PlaintextEngine(_PlaintextRequests):
+    """Plaintext min-distance search over a device-resident template DB."""
+
+    def __init__(self, patterns_packed: np.ndarray, masks_packed: np.ndarray, *,
+                 device="cuda", chunk: int = DEFAULT_CHUNK, storage: str = "auto"):
+        """Args:
+        patterns_packed, masks_packed: uint8 [N, 1600] packed planes (host).
+        device: where the DB lives and the search runs; the card by
+          default, and a CUDA device without a card raises.
+        chunk: DB entries per scan step (rounded up to a multiple of 8 on the
+          card, where the int8 product needs it; the padded rows never win).
+        storage: "packed" keeps the raw bit planes (3.2 KB per entry) and
+          unpacks per chunk; "dense" keeps int8 encodings and masks (25.6 KB
+          per entry); "auto" is packed, as in the reference (:class:`PlainDB`).
+        """
+        self.device = _engine_device(device, "PlaintextEngine")
+        self.storage = PlainDB.resolve(storage)
+        kernel_self_test(self.device)
+        n = patterns_packed.shape[0]
+        chunk = _engine_chunk(chunk, n, self.device)
+        self.chunk = chunk
+        with annotate("iris.setup.db_load"):
+            pat_c, self.count = _pad_chunks(
+                np.ascontiguousarray(patterns_packed, dtype=np.uint8), chunk)
+            msk_c, _ = _pad_chunks(np.ascontiguousarray(masks_packed, dtype=np.uint8), chunk)
+            db_pat = torch.from_numpy(np.require(pat_c, requirements="CW")).to(self.device)
+            db_msk = torch.from_numpy(np.require(msk_c, requirements="CW")).to(self.device)
+            self._db = PlainDB(db_pat, db_msk, self.storage)
+        self._n_padded = self._db.n_chunks * chunk
+
+    def match_arrays(self, q_enc, q_mask) -> torch.Tensor:
+        """Prepared query planes -> int32 [3, B] stacked (numerator,
+        denominator, DB index) on the engine's device."""
+        return self._db.match(q_enc, q_mask)
+
+    def distances(self, patterns_packed, masks_packed) -> np.ndarray:
+        """Full f64 distance matrix [B, N] (for tests and small DBs),
+        bit-identical to the scalar oracle ``Template.distance`` per pair."""
+        q_enc, q_mask = self._queries(patterns_packed, masks_packed)
+        out = []
+        for c in range(self._db.n_chunks):
+            num, den = _plaintext_chunk_fractions(q_enc, q_mask, *self._db.encoded(c))
+            num, den = num.cpu().numpy(), den.cpu().numpy()
+            vals = decode_distance_batch_np(
+                # decode takes u16 "dots": dot = den - 2*num (exact ints)
+                (den - 2 * num).astype(np.int64) & 0xFFFF,
+                den,
+            ).reshape(num.shape[0], -1)
+            out.append(vals)
+        return np.concatenate(out, axis=1)[:, : self.count]
+
+    def _spectrum(self, q_enc, q_mask) -> torch.Tensor:
+        """Prepared query planes -> the int16 [2, B, N_padded] fraction
+        spectrum on the engine's device. Followed by
+        :func:`_compact_under_device` it stands for the reference's fused
+        ``_fractions_under_compact``, ``_fractions_under_compact_packed``,
+        ``_fractions_under_compact_packed_smallb`` and
+        ``fractions_under_compact_packed_auto``: without ``jit`` each is
+        these two calls."""
+        return self._db.spectrum(q_enc, q_mask)
 
 
 # --------------------------------------------------------------------- share path: per chunk
@@ -635,6 +676,25 @@ def _mask_dots_chunk_packed(q_mask, db_mask_packed) -> torch.Tensor:
     """:func:`_mask_dots_chunk` over a bit-packed uint8 [c, 1600] mask chunk
     (1.6 KB per entry on the device; unpacked per chunk)."""
     return _mask_dots_chunk(q_mask, unpack_bits(db_mask_packed).to(torch.int8))
+
+
+# Past this many entries a device holds, "auto" masks storage is packed: the
+# reference's boundary, so both packages store alike.
+_MASKS_PACKED_PAST = 400_000
+
+# by a masks DB's storage: a packed uint8 [c, 1600] chunk as stored, and
+# the chunk dot over it
+_MASK_FORMATS = {"packed": (lambda block: block, _mask_dots_chunk_packed),
+                 "dense": (lambda block: unpack_bits(block).to(torch.int8), _mask_dots_chunk)}
+
+
+def _masks_storage(storage: str, entries_per_device: int) -> str:
+    """The masks DB's storage: "auto" is packed past
+    ``_MASKS_PACKED_PAST`` entries a device, else dense; any other name as
+    :meth:`PlainDB.resolve` takes it."""
+    if storage == "auto":
+        return "packed" if entries_per_device > _MASKS_PACKED_PAST else "dense"
+    return PlainDB.resolve(storage)
 
 
 def _host_u16(block: torch.Tensor) -> np.ndarray:
@@ -1141,11 +1201,8 @@ class MasksEngine:
         kernel_self_test(self.device)
         n = masks_packed.shape[0]
         chunk = _engine_chunk(chunk, n, self.device)
-        if storage == "auto":
-            storage = "packed" if n > 400_000 else "dense"
-        if storage not in ("packed", "dense"):
-            raise ValueError(f"unknown storage {storage!r}")
-        self.storage = storage
+        self.storage = _masks_storage(storage, n)
+        self._stored, self._dots = _MASK_FORMATS[self.storage]
         self._source = masks_packed
         self.count = n
         self.chunk = chunk
@@ -1164,10 +1221,7 @@ class MasksEngine:
         # not-writable warning is silenced, as in ShareEngine._put
         with warnings.catch_warnings():
             warnings.simplefilter("ignore", UserWarning)
-            block = torch.from_numpy(rows).to(self.device)
-        if self.storage == "packed":
-            return block
-        return unpack_bits(block).to(torch.int8)
+            return self._stored(torch.from_numpy(rows).to(self.device))
 
     def refresh(self, masks_packed: np.ndarray) -> int:
         """Adopt a grown (append-only) masks source; returns entries added.
@@ -1198,9 +1252,7 @@ class MasksEngine:
 
     def dots_chunk(self, q_mask, chunk_index: int) -> torch.Tensor:
         blocks = self._blocks  # snapshot: refresh() swaps, never mutates
-        if self.storage == "packed":
-            return _mask_dots_chunk_packed(q_mask, blocks[chunk_index])
-        return _mask_dots_chunk(q_mask, blocks[chunk_index])
+        return self._dots(q_mask, blocks[chunk_index])
 
     def _queries(self, masks_packed) -> torch.Tensor:
         q = _put_u8(masks_packed, self.device)

@@ -313,7 +313,7 @@ def fractions_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk) -> torch.T
     """Plain version of :func:`fractions_packed_small_b`: the packed
     spectrum scan (per chunk unpack and encode the DB, two int8 products,
     the exact rotation min)."""
-    return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk)
+    return _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk, fused=False)
 
 
 def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,

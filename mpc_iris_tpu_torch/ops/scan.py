@@ -119,17 +119,17 @@ def _query_rows(q: torch.Tensor) -> torch.Tensor:
     return q.reshape(q.shape[0] * N_ROTATIONS, BITS)
 
 
-def _packed_products(qe, qm, db_pat, db_msk, kernel: bool):
+def _packed_products(qe, qm, db_pat, db_msk, fused: bool):
     """The chunk products over a packed DB: through ``packed_gemm``
-    (``kernel``) or each chunk unpacked and encoded, then two
+    (``fused``) or each chunk unpacked and encoded, then two
     ``dot_bits_batch`` (the plain versions' path); identical values."""
-    if kernel:
+    if fused:
         return _packed_gemm_products(qe, qm, db_pat, db_msk)
     return _chunk_products(qe, qm, db_pat.shape[0],
                            lambda c: _unpack_encode_chunk(db_pat[c], db_msk[c]))
 
 
-def _match_scan_packed(q_enc, q_mask, db_pat, db_msk, *, fused: bool = True) -> torch.Tensor:
+def _match_scan_packed(q_enc, q_mask, db_pat, db_msk, *, fused: bool) -> torch.Tensor:
     """Min-distance search over a BIT-PACKED DB, uint8 [C, c, 1600] pattern
     and mask planes. ``fused`` takes each chunk's products in one
     ``packed_gemm`` and selects with ``select_chunk`` (the kernels on the
@@ -145,11 +145,11 @@ def _match_scan_packed(q_enc, q_mask, db_pat, db_msk, *, fused: bool = True) -> 
                  select, q_enc.device)
 
 
-def _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk, *, kernel: bool = False) -> torch.Tensor:
+def _fractions_scan_packed(q_enc, q_mask, db_pat, db_msk, *, fused: bool) -> torch.Tensor:
     """:func:`_fractions_scan` over a BIT-PACKED DB, uint8 [C, c, 1600]
-    planes: with ``kernel`` each chunk's products in one ``packed_gemm``,
+    planes: ``fused`` takes each chunk's products in one ``packed_gemm``,
     else (the plain version of the packed audit-spectrum kernels) the chunk
     unpacked and encoded on the device and two ``dot_bits_batch``."""
     b, (n_chunks, chunk) = q_enc.shape[0], db_pat.shape[:2]
-    products = _packed_products(_query_rows(q_enc), _query_rows(q_mask), db_pat, db_msk, kernel)
+    products = _packed_products(_query_rows(q_enc), _query_rows(q_mask), db_pat, db_msk, fused)
     return _spectrum_scan(b, products, n_chunks, chunk, q_enc.device)

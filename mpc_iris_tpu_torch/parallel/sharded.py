@@ -15,17 +15,17 @@ global chunks {j*D + i}:
   works.
 
 Each shard's body is the port's single-card function on its own
-[C_local, c, ...] slab: ``match_scan_packed_auto`` (kernel (b) at B <= 8,
-the scan through kernel (a) above), ``fractions_scan_packed_auto`` (kernel
-(c) at B <= 8), ``_share_dots_chunk`` and, for a keyed party,
-``_share_dots_chunk_keyed`` (kernel (d)). Every launch goes to the shard's
-own device, and torch launches are asynchronous per device, so shards on
-distinct cards overlap; shards on one repeated device run one after
-another. Queries split over ``"batch"`` for the plaintext engine (B must
-divide by the batch axis); the global winner is combined with
-:func:`~.collectives.fraction_allmin` over the shards. The MPC engines take
-the whole batch on each shard's first device, as the reference replicates
-their queries over ``"batch"``.
+[C_local, c, ...] slab: its ``PlainDB``'s ``match_scan_packed_auto``
+(kernel (b) at B <= 8, the scan through kernel (a) above) and
+``fractions_scan_packed_auto`` (kernel (c) at B <= 8); ``_share_dots_chunk``
+and, for a keyed party, ``_share_dots_chunk_keyed`` (kernel (d)). Every
+launch goes to the shard's own device, and torch launches are asynchronous
+per device, so shards on distinct cards overlap; shards on one repeated
+device run one after another. Queries split over ``"batch"`` for the
+plaintext engine (B must divide by the batch axis); the global winner is
+combined with :func:`~.collectives.fraction_allmin` over the shards. The MPC
+engines take the whole batch on each shard's first device, as the reference
+replicates their queries over ``"batch"``.
 
 In a party of several processes, each process loads the DB rows its own
 devices sit on (a contiguous range of the ``"db"`` axis; a row may span
@@ -41,7 +41,6 @@ checksums add.
 
 from __future__ import annotations
 
-import functools
 import math
 import sys
 
@@ -49,32 +48,24 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from mpc_iris_tpu_torch.constants import BITS, N_ROTATIONS
+from mpc_iris_tpu_torch.constants import N_ROTATIONS
 from mpc_iris_tpu_torch.models.engines import (
+    _MASK_FORMATS,
+    _MASKS_PACKED_PAST,
     DEFAULT_CHUNK,
-    _compact_under_device,
-    _fractions_scan,
-    _mask_dots_chunk,
-    _mask_dots_chunk_packed,
-    _put_u8,
+    MasksEngine,
+    PlainDB,
+    _masks_storage,
+    _PlaintextRequests,
     _queries_to_natural_k,
-    _results_from_triples,
     _share_dots_chunk,
     _share_dots_chunk_keyed,
     _shares_reformat,
     _to_entry_major,
-    _unpack_encode_chunk,
-    fractions_scan_packed_auto,
-    host_spectrum,
-    match_scan_auto,
-    match_scan_packed_auto,
-    orchestrate_find_under,
     pipelined_stream,
-    prepare_query_planes,
 )
 from mpc_iris_tpu_torch.ops.chacha import check_stream_id, key_tensor
 from mpc_iris_tpu_torch.ops.decode import INDEX_PAD
-from mpc_iris_tpu_torch.ops.encode import unpack_bits
 from mpc_iris_tpu_torch.ops.self_test import kernel_self_test
 from mpc_iris_tpu_torch.parallel.collectives import all_gather_cat, fraction_allmin
 from mpc_iris_tpu_torch.utils.profiling import annotate
@@ -202,14 +193,15 @@ class _ShardedBase:
         """Hook: engines with a transformed DB K order override (keyed)."""
         return q_enc
 
-    def _queries(self, patterns_packed, masks_packed):
-        with annotate("iris.query_prep"):
-            return prepare_query_planes(_put_u8(patterns_packed, self.device),
-                                        _put_u8(masks_packed, self.device))
+    _queries = _PlaintextRequests._queries
 
 
-class ShardedPlaintextEngine(_ShardedBase):
-    """Exact plaintext min-distance search over a DB sharded across devices."""
+class ShardedPlaintextEngine(_PlaintextRequests, _ShardedBase):
+    """Exact plaintext min-distance search over a DB sharded across devices:
+    the single-card engine's requests over one ``PlainDB`` a (shard,
+    device)."""
+
+    _find_under_spectrum = "find_under spectrum"
 
     def __init__(self, patterns_packed, masks_packed, mesh,
                  chunk: int = DEFAULT_CHUNK, storage: str = "auto"):
@@ -222,29 +214,18 @@ class ShardedPlaintextEngine(_ShardedBase):
         n = patterns_packed.shape[0]
         chunk = effective_chunk(chunk, n, mesh.shape["db"], mesh.device_type)
         super().__init__(mesh, chunk)
-        if storage == "auto":
-            storage = "packed"
-        if storage not in ("packed", "dense"):
-            raise ValueError(f"unknown storage {storage!r}")
-        self.storage = storage
+        self.storage = PlainDB.resolve(storage)
         self.count = n
         self.g_blocks = max(1, -(-n // (chunk * self.n_shards)))
-        # global shard i -> {device: (a, b)}: packed planes, or encodings and
-        # masks, on each of this process's devices of row i
+        self._n_padded = self.g_blocks * self.n_shards * chunk
+        # global shard i -> {device: PlainDB}, this process's devices of row i
         self._db = {}
         with annotate("iris.setup.db_load"):
             pat_s = self._upload_local(patterns_packed)
             msk_s = self._upload_local(masks_packed)
             for i, per_dev in pat_s.items():
-                for dev, a in per_dev.items():
-                    b = msk_s[i][dev]
-                    if storage == "dense":
-                        enc = torch.empty((a.shape[0], chunk, BITS), dtype=torch.int8, device=dev)
-                        mask = torch.empty_like(enc)
-                        for c in range(a.shape[0]):
-                            enc[c], mask[c] = _unpack_encode_chunk(a[c], b[c])
-                        a, b = enc, mask
-                    self._db.setdefault(i, {})[dev] = (a, b)
+                self._db[i] = {dev: PlainDB(pat, msk_s[i][dev], self.storage)
+                               for dev, pat in per_dev.items()}
 
     def _upload_local(self, src) -> dict:
         """This process's shards' slabs of one packed plane: global shard i
@@ -300,9 +281,10 @@ class ShardedPlaintextEngine(_ShardedBase):
         return [(j, slice(j * bl, (j + 1) * bl)) for j in range(nb)]
 
     def _per_shard(self, q_enc, q_mask, fn):
-        """Run ``fn(q_enc, q_mask, a, b)`` for every mesh entry (shard i,
-        column j) of this process on its device, with the column's queries
-        and the shard's slabs; yields (column, rows, shard, result). Every
+        """Run ``fn(db, q_enc, q_mask)`` (``PlainDB.match`` or
+        ``PlainDB.spectrum``) for every mesh entry (shard i, column j) of
+        this process on its device, with the shard's DB there and the
+        column's queries; yields (column, rows, shard, result). Every
         column's queries reach every device first (``_spread``)."""
         rows_of = dict(self._columns(q_enc.shape[0]))
         qs = {}
@@ -311,7 +293,7 @@ class ShardedPlaintextEngine(_ShardedBase):
             qs[j] = (self._spread(q_enc[rows], devs), self._spread(q_mask[rows], devs))
         for i, j in self._entries:
             dev = self.mesh.devices[i, j]
-            out = fn(qs[j][0][dev], qs[j][1][dev], *self._db[i][dev])
+            out = fn(self._db[i][dev], qs[j][0][dev], qs[j][1][dev])
             count_event("iris.shard.bodies")
             yield j, rows_of[j], i, out
 
@@ -322,8 +304,7 @@ class ShardedPlaintextEngine(_ShardedBase):
         shards, and in a party of several processes over the ranks (a
         column a rank does not compute is the invalid candidate there)."""
         c, d = self.chunk, self.n_shards
-        scan = match_scan_packed_auto if self.storage == "packed" else match_scan_auto
-        bodies = list(self._per_shard(q_enc, q_mask, scan))
+        bodies = list(self._per_shard(q_enc, q_mask, PlainDB.match))
         with annotate("iris.fold"):
             cols = {}
             for j, rows, i, (n_, d_, l) in bodies:
@@ -341,21 +322,6 @@ class ShardedPlaintextEngine(_ShardedBase):
             return torch.stack(fraction_allmin([win[0]], [win[1]], [win[2]], self.device,
                                                self._group))
 
-    def match(self, patterns_packed, masks_packed):
-        with annotate("iris.match", request=True):
-            out = self.match_arrays(*self._queries(patterns_packed, masks_packed))
-            with annotate("iris.wait"):
-                n, d, i = out.cpu().numpy()
-            return _results_from_triples(n, d, i)
-
-    def _guard_spectrum(self, b: int, what: str) -> None:
-        """The spectrum costs 4 bytes per (query, padded entry), reassembled
-        on one device (and whole on every process of a party)."""
-        n_padded = self.g_blocks * self.n_shards * self.chunk
-        if 4 * b * n_padded > 4 * (1 << 30):
-            raise ValueError(f"{what} would be {4 * b * n_padded / 2**30:.1f} GiB "
-                             f"on device (B={b}); split the query batch")
-
     def _spectrum(self, q_enc, q_mask) -> torch.Tensor:
         """The fraction spectrum int16 [2, B, G*D*c] in GLOBAL entry order on
         the first device: each mesh entry's [2, B_col, G*c] is written into
@@ -363,9 +329,8 @@ class ShardedPlaintextEngine(_ShardedBase):
         taken from the rank that computed it."""
         b, g, c, d = q_enc.shape[0], self.g_blocks, self.chunk, self.n_shards
         cols = self._columns(b)
-        scan = fractions_scan_packed_auto if self.storage == "packed" else _fractions_scan
         pieces = {(j, i): nd.reshape(2, -1, g, c).to(self.device, torch.int16)
-                  for j, _, i, nd in self._per_shard(q_enc, q_mask, scan)}
+                  for j, _, i, nd in self._per_shard(q_enc, q_mask, PlainDB.spectrum)}
         owners = {(j, i): self.mesh.ranks[i, j] for j, _ in cols for i in range(d)}
         pieces = self._gather_slots(pieces, owners, (2, b // len(cols), g, c), torch.int16)
         out = torch.empty((2, b, g, d, c), dtype=torch.int16, device=self.device)
@@ -374,40 +339,17 @@ class ShardedPlaintextEngine(_ShardedBase):
                 out[:, rows, :, i] = pieces[j, i]
         return out.reshape(2, b, -1)
 
-    def _host_spectrum(self, nd: torch.Tensor) -> np.ndarray:
-        return host_spectrum(nd, self.count)
-
-    def min_fractions(self, patterns_packed, masks_packed) -> np.ndarray:
-        """uint16 [2, B, N]: per-entry minimal (numerator, denominator) pair,
-        in global DB order (the sharded sibling of
-        ``models.PlaintextEngine.min_fractions``)."""
-        q_enc, q_mask = self._queries(patterns_packed, masks_packed)
-        self._guard_spectrum(q_enc.shape[0], "min_fractions output")
-        return self._host_spectrum(self._spectrum(q_enc, q_mask))
-
     def find_under(self, patterns_packed, masks_packed, threshold: float,
                    limit: int | None = None, compact_k: int | None = None):
-        """ALL DB entries with distance strictly under ``threshold`` per query
-        (== ``models.PlaintextEngine.find_under`` over the sharded DB). The
-        spectrum is computed ONCE, compacted on the device, and reused by
-        the full-spectrum fallback on overflow; the same policy
-        (``orchestrate_find_under``) and the same blow-up guard."""
+        """``models.PlaintextEngine.find_under`` over the sharded DB, but a
+        NaN or non-positive threshold returns empty lists at once, before
+        any work and outside the request's span, as the reference's
+        sharded engine does."""
         b = np.asarray(patterns_packed).shape[0]
         t = float(threshold)
         if math.isnan(t) or t <= 0.0:
             return [[] for _ in range(b)]
-        self._guard_spectrum(b, "find_under spectrum")
-        with annotate("iris.find_under", request=True):
-            q_enc, q_mask = self._queries(patterns_packed, masks_packed)
-            spectrum = functools.cache(lambda: self._spectrum(q_enc, q_mask))
-
-            def compact(t_hi, k):
-                meta, nd_c = _compact_under_device(spectrum(), t_hi, k)
-                with annotate("iris.wait"):
-                    return meta.cpu().numpy(), nd_c.cpu().numpy()
-
-            return orchestrate_find_under(self.count, b, threshold, limit, compact_k,
-                                          lambda: self._host_spectrum(spectrum()), compact)
+        return super().find_under(patterns_packed, masks_packed, threshold, limit, compact_k)
 
 
 class _BlockListEngine(_ShardedBase):
@@ -624,11 +566,8 @@ class ShardedMasksEngine(_BlockListEngine):
         n = masks_packed.shape[0]
         chunk = effective_chunk(chunk, n, mesh.shape["db"], mesh.device_type)
         super().__init__(mesh, chunk)
-        if storage == "auto":
-            storage = "packed" if n // self.n_shards > 400_000 else "dense"
-        if storage not in ("packed", "dense"):
-            raise ValueError(f"unknown storage {storage!r}")
-        self.storage = storage
+        self.storage = _masks_storage(storage, n // self.n_shards)
+        self._stored, self._dots = _MASK_FORMATS[self.storage]
         self.count = n
         g_blocks = max(1, -(-n // (chunk * self.n_shards)))
         self._blocks = [self._load_block(j, masks_packed, n) for j in range(g_blocks)]
@@ -640,27 +579,25 @@ class ShardedMasksEngine(_BlockListEngine):
             return []
         local = self._block_rows(j, src, n).astype(np.uint8, copy=False)
         lo = self._shards[0]
-        out = []
-        for i in self._shards:
-            t = torch.from_numpy(local[i - lo]).to(self._home(i))
-            out.append(t if self.storage == "packed" else unpack_bits(t).to(torch.int8))
-        return out
+        return [self._stored(torch.from_numpy(local[i - lo]).to(self._home(i)))
+                for i in self._shards]
 
     def _growth_note(self, n_new: int) -> str | None:
-        if self.storage == "dense" and n_new // self.n_shards > 400_000:
+        if self.storage == "dense" and n_new // self.n_shards > _MASKS_PACKED_PAST:
             return (f"DB grew to {n_new} with dense storage (12.8 KB/entry/shard); a "
                     "fresh build would pick packed (1.6 KB); rebuild to save device memory")
         return None
 
     def _shard_dots(self, qs: dict, blk, li: int, i: int) -> torch.Tensor:
         m = blk[li]
-        dots = _mask_dots_chunk_packed if self.storage == "packed" else _mask_dots_chunk
-        return dots(qs[m.device], m)
+        return self._dots(qs[m.device], m)
+
+    # the query side is the single-card engine's
+    _queries = MasksEngine._queries
 
     def stream(self, masks_packed, entry_major: bool = False):
-        q = _put_u8(masks_packed, self.device)
-        yield from self._stream(self._spread(prepare_query_planes(torch.zeros_like(q), q)[1]),
-                                q.shape[0], entry_major)
+        q_mask = self._queries(masks_packed)
+        yield from self._stream(self._spread(q_mask), q_mask.shape[0], entry_major)
 
     def dots(self, masks_packed) -> np.ndarray:
         return np.concatenate(list(self.stream(masks_packed)), axis=1)

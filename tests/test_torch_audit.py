@@ -113,17 +113,17 @@ def test_fractions_scans_equal_jax(planted, scan_engines, b):
     port, ref = scan_engines
     q_enc, q_mask = tscan.prepare_query_planes(_t(qpat[:b]), _t(qmsk[:b]))
     jq_enc, jq_mask = jeng.prepare_query_planes(qpat[:b], qmsk[:b])
-    if port.storage == "packed":
-        got = tscan._fractions_scan_packed(q_enc, q_mask, port.db_pat, port.db_msk)
+    planes = port._db.planes
+    if port._db.storage == "packed":
+        got = tscan._fractions_scan_packed(q_enc, q_mask, *planes, fused=False)
         want = jeng._fractions_scan_packed(jq_enc, jq_mask, ref.db_pat, ref.db_msk)
         # the kernel wrapper and the dispatch take the same plain scan here
-        assert torch.equal(tpm.fractions_packed_small_b(q_enc, q_mask, port.db_pat,
-                                                        port.db_msk), got)
-        assert torch.equal(teng.fractions_scan_packed_auto(q_enc, q_mask, port.db_pat,
-                                                           port.db_msk), got)
+        assert torch.equal(tpm.fractions_packed_small_b(q_enc, q_mask, *planes), got)
+        assert torch.equal(teng.fractions_scan_packed_auto(q_enc, q_mask, *planes), got)
     else:
-        got = tscan._fractions_scan(q_enc, q_mask, port.db_enc, port.db_mask)
+        got = tscan._fractions_scan(q_enc, q_mask, *planes)
         want = jeng._fractions_scan(jq_enc, jq_mask, ref.db_enc, ref.db_mask)
+    assert torch.equal(port._db.spectrum(q_enc, q_mask), got)
     assert got.dtype == torch.int16 and got.shape == (2, b, 800)
     np.testing.assert_array_equal(got.numpy().astype(np.uint16), np.asarray(want))
     n, d = got.numpy()
@@ -155,7 +155,7 @@ def _planted_spectrum():
     pat_c, _ = teng._pad_chunks(pat, 128)
     msk_c, _ = teng._pad_chunks(msk, 128)
     nd = tscan._fractions_scan_packed(*tscan.prepare_query_planes(_t(qpat), _t(qmsk)),
-                                      _t(pat_c), _t(msk_c))
+                                      _t(pat_c), _t(msk_c), fused=False)
     return nd.numpy().astype(np.uint16)
 
 

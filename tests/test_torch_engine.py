@@ -133,3 +133,23 @@ def test_engine_needs_explicit_device(world):
                  lambda: PlaintextEngine(pat, msk, device=torch.device("cuda"))):
         with pytest.raises(RuntimeError, match="no CUDA card"):
             make()
+
+
+@pytest.mark.parametrize("engine", ["plaintext", "sharded plaintext", "masks", "sharded masks"])
+def test_every_engine_refuses_an_unknown_storage(world, engine):
+    """One storage rule for the plaintext DB (``PlainDB.resolve``) and one
+    for the masks DB (``_masks_storage``, which takes the names the same
+    way): each engine, single-card and sharded, raises on a name other than
+    "auto", "packed" or "dense"."""
+    from mpc_iris_tpu_torch.models import MasksEngine
+    from mpc_iris_tpu_torch.parallel import ShardedMasksEngine, ShardedPlaintextEngine, make_mesh
+
+    pat, msk, _, _ = world
+    mesh = make_mesh(2, 1, devices=[torch.device("cpu")] * 2)
+    make = {"plaintext": lambda: PlaintextEngine(pat, msk, device="cpu", storage="sparse"),
+            "sharded plaintext": lambda: ShardedPlaintextEngine(pat, msk, mesh,
+                                                                storage="sparse"),
+            "masks": lambda: MasksEngine(msk, device="cpu", storage="sparse"),
+            "sharded masks": lambda: ShardedMasksEngine(msk, mesh, storage="sparse")}[engine]
+    with pytest.raises(ValueError, match="unknown storage 'sparse'"):
+        make()

@@ -116,7 +116,8 @@ def test_the_chunk_build_lays_out_the_old_bytes(shape, ranks, me):
     want_p, want_m = old_blocked_local(eng, pat), old_blocked_local(eng, msk)
     assert sorted(eng._db) == list(range(lo, hi))
     for i, per_dev in eng._db.items():
-        for a, b in per_dev.values():
+        for db in per_dev.values():
+            a, b = db.planes
             assert a.dtype == torch.uint8 and a.shape == (eng.g_blocks, CHUNK, data.BITS_BYTES)
             assert np.array_equal(a.numpy(), want_p[i - lo])
             assert np.array_equal(b.numpy(), want_m[i - lo])
@@ -232,7 +233,7 @@ def test_the_work_counts_each_shard_as_the_engine_lays_it_out(n, chunk):
     if n < 1000:
         msk = np.random.default_rng(n).integers(1, 256, (n, data.BITS_BYTES), dtype=np.uint8)
         eng = ShardedPlaintextEngine(msk, msk, cpu_mesh(4), chunk=chunk)
-        rows = [int(eng._db[i][CPU][1].reshape(-1, data.BITS_BYTES).any(1).sum())
+        rows = [int(eng._db[i][CPU].planes[1].reshape(-1, data.BITS_BYTES).any(1).sum())
                 for i in range(4)]
         assert rows == work.shard_entries(n, 4, eng.chunk)
 
