@@ -233,6 +233,7 @@ from mpc_iris_tpu_torch.ops.keyed_dot import (
     keyed_share_dots_reference,
 )
 from mpc_iris_tpu_torch.ops.packed_match import (
+    _launch_int8_fractions,
     _launch_int8_group,
     _launch_plan,
     _one_query_operand,
@@ -2051,7 +2052,7 @@ def main() -> int:
     for line in b.log.splitlines():
         if "Compiling entry function" in line:
             kernel = next((k for k in ("select_part_kernel", "packed_match_kernel_g8",
-                                       "packed_match_kernel",
+                                       "packed_match_kernel", "packed_fractions_kernel_g8",
                                        "packed_fractions_kernel", "fold_parts_kernel",
                                        "chacha_planes_kernel", "int8_gemm_kernel",
                                        "packed_gemm_kernel",
@@ -2353,6 +2354,17 @@ def main() -> int:
         print(f"  {packed_rate(bb, packed.count, k_ms)}; bound {bound_ms:.3f} ms "
               f"({bound_by}), {bound_ms / k_ms:.1%} of it")
         if bb == 8:
+            # the group of 8 beside the loop it replaced there, two groups of 4
+            fours = torch.empty_like(got)
+            n_slab = packed._db.n_chunks * packed._db.chunk
+            four = lambda: _launch_int8_fractions(  # noqa: E731
+                lib, *args4, n_slab, 4, fours[0, 0], 8 * n_slab)
+            four()
+            check(torch.equal(fours, got), "fractions_packed_small_b B=8 as groups of 4 equals "
+                  "the group of 8")
+            print(f"  B=8: the group of 8 {k_ms:.3f} ms, as two groups of 4 "
+                  f"{cuda_ms(four, 5):.3f} ms [{card}]")
+            del fours
             t_hi, k = np.float32(AUDIT_THRESHOLD * (1.0 + 1e-4)), 65536
             c_ms = cuda_ms(lambda: _compact_under_device(got, t_hi, k), 20)
             print(f"time compaction _compact_under_device [2, 8, {got.shape[2]}] k={k}: "

@@ -11,7 +11,10 @@
 // entry. Groups of one query (B = 1, and a remainder of one, as at B = 5) do
 // not come here: the wrapper launches b1_packed.cu's pk_fractions_kernel for
 // them, the binary design, which reads the DB once near the memory rate
-// where this kernel at N = 32 ran at a quarter of it.
+// where this kernel at N = 32 ran at a quarter of it. A launch of exactly 8
+// queries is one group of 8 in packed_match_g8.cu (N = 256, packed_gemm.cu's
+// warp-specialized design, the match's tile loop);
+// fractions_packed_small_b_launch forwards it there.
 //
 // What bounds it on the H100: the match kernel's two int8 products (0.84 ms
 // per query at 1M entries at 1,979 TOPS) against the packed DB read once
@@ -92,13 +95,20 @@ int launch(const void* qt, const void* dp, const void* dm, long long n_entries, 
 }  // namespace
 }  // namespace mpc_iris
 
-// One launch for nq queries in groups of qg (2 or 4; cudaErrorInvalidValue
-// for another qg): qt, dp, dm as for match_packed_small_b_launch; out: int16, the first query's n plane row
-// (its d row is `plane` elements further). Launches on `stream`; returns
-// cudaGetLastError().
+extern "C" int fractions_packed_g8_launch(const void* q, const void* dp, const void* dm,
+                                          long long n_entries, void* scratch, void* out,
+                                          long long plane, void* stream);
+
+// One launch for nq queries in groups of qg (2 or 4; 8 for nq = 8 exactly;
+// cudaErrorInvalidValue otherwise): qt, dp, dm as for
+// match_packed_small_b_launch; scratch: unused for 2 and 4, at qg = 8 int32
+// [fractions_packed_g8_scratch(n_entries)]; out: int16, the first query's n
+// plane row (its d row is `plane` elements further). Launches on `stream`;
+// returns cudaGetLastError().
 extern "C" int fractions_packed_small_b_launch(int qg, const void* qt, const void* dp,
                                                const void* dm, long long n_entries, int nq,
-                                               void* out, long long plane, void* stream) {
+                                               void* scratch, void* out, long long plane,
+                                               void* stream) {
   using namespace mpc_iris;
   auto s = static_cast<cudaStream_t>(stream);
   switch (qg) {
@@ -106,6 +116,9 @@ extern "C" int fractions_packed_small_b_launch(int qg, const void* qt, const voi
       return launch<2, tile::kMt[2]>(qt, dp, dm, n_entries, nq, out, plane, s);
     case 4:
       return launch<4, tile::kMt[4]>(qt, dp, dm, n_entries, nq, out, plane, s);
+    case 8:
+      if (nq != 8) return static_cast<int>(cudaErrorInvalidValue);
+      return fractions_packed_g8_launch(qt, dp, dm, n_entries, scratch, out, plane, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

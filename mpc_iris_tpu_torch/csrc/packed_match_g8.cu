@@ -1,23 +1,32 @@
-// Kernel (b) for a launch of exactly 8 queries: the small-batch match over
-// the BIT-PACKED template DB as ONE group of eight queries, on Hopper's int8
-// tensor cores, the exact selection fused.
+// Kernels (b) and (c) for a launch of exactly 8 queries: the small-batch
+// match and the audit spectrum over the BIT-PACKED template DB as ONE group
+// of eight queries, on Hopper's int8 tensor cores. One tile loop computes
+// each entry's exact minimum over the 31 rotations of n/d (ties to the
+// earliest rotation) for the 8 queries; its epilogue is a template
+// parameter, and the two kernels differ only there:
+// - packed_match_kernel_g8 replaces, at B = 8, the TPU kernel
+//   mpc_iris_tpu/ops/packed_match.py::match_packed_small_b (kernel body
+//   _pk_select_kernel), as packed_match.cu does for groups of 2 and 4: per
+//   query the winner (n, d, idx) over the WHOLE DB, the exact argmin over
+//   entries (ties to the lowest global index). Each cluster leaves one
+//   partial winner per query, int32 [3][8][n_parts], and fold_parts_kernel
+//   (frac.cuh) folds them.
+// - packed_fractions_kernel_g8 replaces, at B = 8, the TPU kernel
+//   mpc_iris_tpu/ops/packed_match.py::fractions_packed_small_b (kernel body
+//   _pk_fractions_kernel), as packed_fractions.cu does for groups of 2 and 4:
+//   each entry's minimum (n, d) written as int16 planes [2][8][n_entries]
+//   (an all-invalid or zero-padded entry (0, 0)). Nothing to fold; its
+//   scratch is the exchange's slots alone.
 //
-// Replaces, at B = 8, the TPU kernel mpc_iris_tpu/ops/packed_match.py::
-// match_packed_small_b (kernel body _pk_select_kernel), as packed_match.cu
-// does for groups of 2 and 4: per query the winner (n, d, idx) over the
-// WHOLE DB, each entry's exact minimum over the 31 rotations of n/d (ties to
-// the earliest rotation), then the exact argmin over entries (ties to the
-// lowest global index). Each cluster leaves one partial winner per query,
-// int32 [3][8][n_parts], and fold_parts_kernel (frac.cuh) folds them.
-//
-// What bounds it on the H100: the two int8 products, 32 x 12,800 x 2 MACs
+// What bounds both on the H100: the two int8 products, 32 x 12,800 x 2 MACs
 // per (query, entry): 6.73 ms for 8 queries at 1M entries at 1,979 TOPS
 // (31 of the 32 rows a query count), against 1.00 ms to read the packed DB
-// once. packed_tile.cuh's loop runs them in groups of 4 (N = 128, both
-// products in every thread) at 44-47% of the int8 peak, its time following
-// its count of wgmma instructions. packed_gemm.cu runs the same products
-// over the same packed DB at 79-82% (PERF.md §6 row e); this kernel is its
-// mainloop (packed_gemm.cuh, shared) with the selection fused:
+// once (the spectrum writes 32 bytes an entry more, 0.01 ms at 1M).
+// packed_tile.cuh's loop runs them in groups of 4 (N = 128, both products in
+// every thread) at 44-47% of the int8 peak, its time following its count of
+// wgmma instructions. packed_gemm.cu runs the same products over the same
+// packed DB at 79-82% (PERF.md §6 row e); these kernels are its mainloop
+// (packed_gemm.cuh, shared) with the rotation minimum fused:
 // - The 8 queries' 256 rotation rows (row 31 of each zero: den 0, never
 //   valid) are one wgmma N = 256: m64n256k32, both operands in shared
 //   memory, the query rows in packed_gemm's K order
@@ -42,9 +51,11 @@
 //   if the other is two tiles behind), each side signalling on the other's
 //   mbarriers at cluster scope. Each block then takes for its own 4 queries
 //   each entry's exact rotation minimum (in the thread, then across the quad
-//   that shares the entry), and one thread of the quad keeps the query's
-//   running winner. Block 0 keeps queries 0-3, block 1 queries 4-7, so both
-//   do half the selection.
+//   that shares the entry), and thread t4 of the quad takes query t4's: the
+//   match folds it into a running winner, the spectrum stores it (8 lanes of
+//   a warp 8 adjacent entries of one query, coalesced along the entry axis).
+//   Block 0 keeps queries 0-3, block 1 queries 4-7, so both do half the
+//   epilogue.
 // - Before a block exits it waits until the other has read its last two
 //   slots, so no remote arrival reaches a block that has exited.
 #include <cuda.h>
@@ -127,14 +138,54 @@ __device__ __forceinline__ int half16(uint32_t w, int hi) {
   return hi ? static_cast<int>(w) >> 16 : static_cast<int>(static_cast<int16_t>(w & 0xFFFFu));
 }
 
+// The match's epilogue: the running winner of query kRank * 4 + t4 over the
+// entries of this thread's quad.
+struct KeepWinner {
+  int n_entries;
+  Frac run;
+  __device__ __forceinline__ void entry(int q, int h, int t4, int e, Frac best) {
+    if (t4 == q && e < n_entries) run = frac_select(run, Frac{best.n, best.d, e});
+  }
+  __device__ __forceinline__ void end_tile(int e0) {}
+};
+
+// The spectrum's epilogue: query kRank * 4 + t4's (n, d) of this thread's two
+// entries of each tile, stored at the tile's end: n at row[e], d at
+// row[plane + e].
+struct WriteSpectrum {
+  int16_t* row;
+  long long plane;
+  int n_entries;
+  int n[2];
+  int d[2];
+  __device__ __forceinline__ void entry(int q, int h, int t4, int e, Frac best) {
+    if (t4 == q) {
+      n[h] = best.n;
+      d[h] = best.d;
+    }
+  }
+  __device__ __forceinline__ void end_tile(int e0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = e0 + 8 * h;
+      if (e < n_entries) {
+        row[e] = static_cast<int16_t>(n[h]);
+        row[plane + e] = static_cast<int16_t>(d[h]);
+      }
+    }
+  }
+};
+
 // A consumer thread of block kRank (0: dot, queries 0-3 kept; 1: den,
-// queries 4-7 kept) over the cluster's tiles; leaves in `run` the running
-// winner of query kRank * 4 + t4 over the entries of this thread's quad.
-template <int kRank>
-__device__ __forceinline__ Frac consumer(uint32_t ring, uint32_t full, uint32_t empty,
+// queries 4-7 kept) over the cluster's tiles; hands `keep` each entry's
+// rotation minimum of each kept query (entry(q, h, t4, e, best) for entry e,
+// row + 8h of the tile, in every thread of the quad), then end_tile(e0) at
+// each tile's end.
+template <int kRank, class Keep>
+__device__ __forceinline__ void consumer(uint32_t ring, uint32_t full, uint32_t empty,
                                          uint32_t a_tiles, uint32_t xfull, uint32_t xempty,
                                          uint32_t* __restrict__ xg, int cluster, int clusters,
-                                         int tiles, int n_entries) {
+                                         int tiles, Keep& keep) {
   constexpr int kGive = kRank == 0 ? kFrom : 0;   // the registers of the other's queries
   constexpr int kOwn = kRank == 0 ? 0 : kFrom;
   const int ct = threadIdx.x - 128;
@@ -146,7 +197,6 @@ __device__ __forceinline__ Frac consumer(uint32_t ring, uint32_t full, uint32_t 
   uint32_t* const give = xg + static_cast<size_t>(cluster * kCluster + kRank) * 2 * kXSlot + ct;
   const uint32_t* const take =
       xg + static_cast<size_t>(cluster * kCluster + (1 - kRank)) * 2 * kXSlot + ct;
-  Frac run = frac_pad();
   int acc[128];
   int it = 0;
   int j = 0;
@@ -197,35 +247,29 @@ __device__ __forceinline__ Frac consumer(uint32_t ring, uint32_t full, uint32_t 
             best = frac_select(best, Frac{(den - dot) >> 1, den, 8 * c + 2 * t4 + e});
           }
         best = tile::quad_select(best);
-        const int entry = e0 + 8 * h;
-        if (t4 == q && entry < n_entries) run = frac_select(run, Frac{best.n, best.d, entry});
+        keep.entry(q, h, t4, e0 + 8 * h, best);
       }
+    keep.end_tile(e0);
   }
   // the other block has read this block's last two slots
   for (int k = 0; k < 2; ++k, ++j) wait_cluster(xempty + 8 * (j & 1), ((j >> 1) & 1) ^ 1);
-  return run;
 }
 
-// grid: clusters of 2 blocks, persistent over `tiles` = ceil(n / 128) tiles
-// of 128 entries; q_map: int8 [512][12800] (the 8 queries' encoding rows,
-// then their mask rows, 32 a query) in packed_gemm's K order; pat_map,
-// msk_map: uint8 [n][1600]; part: int32 [3][8][gridDim.x / 2]; xg: uint32
-// [gridDim.x / 2][2][2][kXSlot], the exchange's slots.
-__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
-packed_match_kernel_g8(const __grid_constant__ CUtensorMap q_map,
-                       const __grid_constant__ CUtensorMap pat_map,
-                       const __grid_constant__ CUtensorMap msk_map, int n_entries, int tiles,
-                       int* __restrict__ part, uint32_t* __restrict__ xg) {
+// Both kernels' block over the cluster's tiles: the barriers, then the
+// producer thread's copies, or a consumer thread's tiles handed to `keep`.
+// Returns false in the producer warpgroup, true in a consumer thread past
+// its last tile.
+template <class Keep>
+__device__ __forceinline__ bool cluster_tiles(const CUtensorMap* q_map, const CUtensorMap* pat_map,
+                                              const CUtensorMap* msk_map, int tiles,
+                                              uint32_t* __restrict__ xg, uint32_t rank,
+                                              int cluster, int clusters, Keep& keep) {
   extern __shared__ uint8_t smem_raw[];
-  __shared__ Frac s_best[kKeep][kConsumers * 4];
   const uint32_t ring = (tile::smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t full = ring + kBarOffset;
   const uint32_t empty = full + 8 * kStages;
   const uint32_t xfull = empty + 8 * kStages;
   const uint32_t xempty = xfull + 8 * 2;
-  const uint32_t rank = cluster_rank();
-  const int cluster = blockIdx.x / kCluster;
-  const int clusters = gridDim.x / kCluster;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -245,11 +289,11 @@ packed_match_kernel_g8(const __grid_constant__ CUtensorMap q_map,
     // ---- producer warpgroup: one thread issues every copy
     tile::regs_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&q_map))
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(q_map))
                    : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&pat_map))
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(pat_map))
                    : "memory");
-      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(&msk_map))
+      asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(msk_map))
                    : "memory");
       // block 0 the encoding rows against the pattern and mask, block 1 the
       // mask rows against the mask
@@ -264,29 +308,50 @@ packed_match_kernel_g8(const __grid_constant__ CUtensorMap q_map,
           const uint32_t base = ring + slot * kStage;
           const uint32_t bar = full + 8 * slot;
           tile::mbar_expect_tx(bar, bytes);
-          tile::tma_load_2d(base, &q_map, js * kStageK, qy, bar);
-          tile::tma_load_2d(base + kQBox, &q_map, js * kStageK + 128, qy, bar);
-          if (rank == 0) tile::tma_load_2d(base + kPatOffset, &pat_map, js * kSlab, d0, bar);
-          tile::tma_load_2d(base + kMskOffset, &msk_map, js * kSlab, d0, bar);
+          tile::tma_load_2d(base, q_map, js * kStageK, qy, bar);
+          tile::tma_load_2d(base + kQBox, q_map, js * kStageK + 128, qy, bar);
+          if (rank == 0) tile::tma_load_2d(base + kPatOffset, pat_map, js * kSlab, d0, bar);
+          tile::tma_load_2d(base + kMskOffset, msk_map, js * kSlab, d0, bar);
         }
       }
     }
-    return;
+    return false;
   }
 
   // ---- consumer warpgroups: 64 entries each against the 256 query rows
   tile::regs_inc<kConsumerRegs>();
   const uint32_t a_tiles = ring + kATiles;
-  const Frac run =
-      rank == 0 ? consumer<0>(ring, full, empty, a_tiles, xfull, xempty, xg, cluster, clusters,
-                              tiles, n_entries)
-                : consumer<1>(ring, full, empty, a_tiles, xfull, xempty, xg, cluster, clusters,
-                              tiles, n_entries);
+  if (rank == 0) {
+    consumer<0>(ring, full, empty, a_tiles, xfull, xempty, xg, cluster, clusters, tiles, keep);
+  } else {
+    consumer<1>(ring, full, empty, a_tiles, xfull, xempty, xg, cluster, clusters, tiles, keep);
+  }
+  return true;
+}
+
+// grid: clusters of 2 blocks, persistent over `tiles` = ceil(n / 128) tiles
+// of 128 entries; q_map: int8 [512][12800] (the 8 queries' encoding rows,
+// then their mask rows, 32 a query) in packed_gemm's K order; pat_map,
+// msk_map: uint8 [n][1600]; part: int32 [3][8][gridDim.x / 2]; xg: uint32
+// [gridDim.x / 2][2][2][kXSlot], the exchange's slots.
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+packed_match_kernel_g8(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap pat_map,
+                       const __grid_constant__ CUtensorMap msk_map, int n_entries, int tiles,
+                       int* __restrict__ part, uint32_t* __restrict__ xg) {
+  __shared__ Frac s_best[kKeep][kConsumers * 4];
+  const uint32_t rank = cluster_rank();
+  const int cluster = blockIdx.x / kCluster;
+  const int clusters = gridDim.x / kCluster;
+  KeepWinner keep{n_entries, frac_pad()};
+  if (!cluster_tiles(&q_map, &pat_map, &msk_map, tiles, xg, rank, cluster, clusters, keep)) {
+    return;
+  }
 
   // the block's winner per kept query: lanes of one t4, then the 8 warps
   const int ct = threadIdx.x - 128;
   const int lane = threadIdx.x & 31;
-  Frac f = run;
+  Frac f = keep.run;
 #pragma unroll
   for (int s = 4; s < 32; s <<= 1) {
     const Frac o{__shfl_xor_sync(0xffffffffu, f.n, s), __shfl_xor_sync(0xffffffffu, f.d, s),
@@ -307,14 +372,45 @@ packed_match_kernel_g8(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// The most clusters of this kernel the current device holds at once.
-int max_clusters() {
-  static int cached[64] = {};
+// grid, q_map, pat_map, msk_map and xg as for packed_match_kernel_g8; out:
+// int16, query q's n at out[q * n_entries + e] and its d at out[plane + q *
+// n_entries + e].
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+packed_fractions_kernel_g8(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap pat_map,
+                           const __grid_constant__ CUtensorMap msk_map, int n_entries, int tiles,
+                           int16_t* __restrict__ out, long long plane,
+                           uint32_t* __restrict__ xg) {
+  const uint32_t rank = cluster_rank();
+  const int q = static_cast<int>(rank) * kKeep + (threadIdx.x & 3);
+  WriteSpectrum keep{out + static_cast<size_t>(q) * n_entries, plane, n_entries, {0, 0}, {0, 0}};
+  cluster_tiles(&q_map, &pat_map, &msk_map, tiles, xg, rank, blockIdx.x / kCluster,
+                gridDim.x / kCluster, keep);
+}
+
+// One of this file's kernels, and by device the most clusters of it the
+// device holds at once (0 until asked).
+struct Kernel {
+  const void* fn;
+  int most[64];
+};
+
+Kernel& match_kernel() {
+  static Kernel k{reinterpret_cast<const void*>(packed_match_kernel_g8), {}};
+  return k;
+}
+
+Kernel& spectrum_kernel() {
+  static Kernel k{reinterpret_cast<const void*>(packed_fractions_kernel_g8), {}};
+  return k;
+}
+
+int max_clusters(Kernel& k) {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cached[dev] == 0) {
-    if (cudaFuncSetAttribute(packed_match_kernel_g8, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSmem) != cudaSuccess) {
+  if (k.most[dev] == 0) {
+    if (cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem) !=
+        cudaSuccess) {
       return 0;
     }
     cudaLaunchConfig_t cfg = {};
@@ -322,18 +418,52 @@ int max_clusters() {
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = kSmem;
     int n = 0;
-    if (cudaOccupancyMaxActiveClusters(&n, packed_match_kernel_g8, &cfg) != cudaSuccess) return 0;
-    cached[dev] = n;
+    if (cudaOccupancyMaxActiveClusters(&n, k.fn, &cfg) != cudaSuccess) return 0;
+    k.most[dev] = n;
   }
-  return cached[dev];
+  return k.most[dev];
 }
 
-// The clusters of a launch over n entries: one a tile, at most what the
-// device holds at once.
-int clusters_for(long long n_entries) {
+// The clusters of a launch of `k` over n entries: one a tile, at most what
+// the device holds at once.
+int clusters_for(Kernel& k, long long n_entries) {
   const long long tiles = (n_entries + kDbRows - 1) / kDbRows;
-  const int most = max_clusters();
+  const int most = max_clusters(k);
   return static_cast<int>(tiles < most ? tiles : most);
+}
+
+// A launch's tensor maps and grid.
+struct Grid {
+  CUtensorMap q_map;
+  CUtensorMap pat_map;
+  CUtensorMap msk_map;
+  int clusters;
+  int tiles;
+};
+
+// Encodes the maps of q, dp, dm (as the launches below take them) and sizes
+// the grid of `k` over n_entries; returns 0, or the CUDA error
+// (cudaErrorInvalidValue for a map it cannot encode or an entry count it
+// does not take).
+int make_grid(Kernel& k, const void* q, const void* dp, const void* dm, long long n_entries,
+              Grid* g) {
+  if (n_entries < 1 || n_entries > INT_MAX - kDbRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!tma::make_map_2d(&g->q_map, q, 2 * kQRows, kK, 128, kQRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tma::make_map_2d(&g->pat_map, dp, n_entries, tile::kPlane, kSlab, kDbRows,
+                        CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !tma::make_map_2d(&g->msk_map, dm, n_entries, tile::kPlane, kSlab, kDbRows,
+                        CU_TENSOR_MAP_SWIZZLE_NONE)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t err =
+      cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  g->clusters = clusters_for(k, n_entries);
+  if (g->clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  g->tiles = static_cast<int>((n_entries + kDbRows - 1) / kDbRows);
+  return 0;
 }
 
 }  // namespace
@@ -344,7 +474,7 @@ int clusters_for(long long n_entries) {
 // the exchange's slots, 128 KB a cluster. 0 where the device cannot run it.
 extern "C" int match_packed_g8_scratch(long long n_entries) {
   using namespace mpc_iris;
-  return clusters_for(n_entries) * (3 * kQueries + kCluster * 2 * kXSlot);
+  return clusters_for(match_kernel(), n_entries) * (3 * kQueries + kCluster * 2 * kXSlot);
 }
 
 // One launch (and its fold) for 8 queries: q int8 [512][12800], the 8
@@ -358,33 +488,44 @@ extern "C" int match_packed_g8_launch(const void* q, const void* dp, const void*
                                       long long n_entries, void* scratch, void* out,
                                       int out_stride, void* stream) {
   using namespace mpc_iris;
-  if (n_entries < 1 || n_entries > INT_MAX - kDbRows) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  CUtensorMap q_map;
-  CUtensorMap pat_map;
-  CUtensorMap msk_map;
-  if (!tma::make_map_2d(&q_map, q, 2 * kQRows, kK, 128, kQRows, CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !tma::make_map_2d(&pat_map, dp, n_entries, tile::kPlane, kSlab, kDbRows,
-                        CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !tma::make_map_2d(&msk_map, dm, n_entries, tile::kPlane, kSlab, kDbRows,
-                        CU_TENSOR_MAP_SWIZZLE_NONE)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaError_t err = cudaFuncSetAttribute(packed_match_kernel_g8,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int clusters = clusters_for(n_entries);
-  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int tiles = static_cast<int>((n_entries + kDbRows - 1) / kDbRows);
+  Grid g;
+  const int bad = make_grid(match_kernel(), q, dp, dm, n_entries, &g);
+  if (bad) return bad;
   auto s = static_cast<cudaStream_t>(stream);
   int* part = static_cast<int*>(scratch);
-  auto* xg = reinterpret_cast<uint32_t*>(part + 3 * kQueries * clusters);
-  packed_match_kernel_g8<<<kCluster * clusters, kThreads, kSmem, s>>>(
-      q_map, pat_map, msk_map, static_cast<int>(n_entries), tiles, part, xg);
-  err = cudaGetLastError();
+  auto* xg = reinterpret_cast<uint32_t*>(part + 3 * kQueries * g.clusters);
+  packed_match_kernel_g8<<<kCluster * g.clusters, kThreads, kSmem, s>>>(
+      g.q_map, g.pat_map, g.msk_map, static_cast<int>(n_entries), g.tiles, part, xg);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  fold_parts_kernel<<<kQueries, kFoldThreads, 0, s>>>(part, clusters, kQueries,
+  fold_parts_kernel<<<kQueries, kFoldThreads, 0, s>>>(part, g.clusters, kQueries,
                                                       static_cast<int*>(out), out_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// int32 words of scratch fractions_packed_g8_launch takes for n_entries
+// entries on the current device: the exchange's slots, 128 KB a cluster. 0
+// where the device cannot run it.
+extern "C" int fractions_packed_g8_scratch(long long n_entries) {
+  using namespace mpc_iris;
+  return clusters_for(spectrum_kernel(), n_entries) * kCluster * 2 * kXSlot;
+}
+
+// One launch for 8 queries: q, dp, dm as for match_packed_g8_launch; scratch
+// int32 [fractions_packed_g8_scratch(n_entries)], 16-byte aligned; out:
+// int16, query 0's n plane row (its d row is `plane` elements further),
+// query q's row q * n_entries elements after query 0's. Launches on
+// `stream`; returns cudaGetLastError() (cudaErrorInvalidValue as above).
+extern "C" int fractions_packed_g8_launch(const void* q, const void* dp, const void* dm,
+                                          long long n_entries, void* scratch, void* out,
+                                          long long plane, void* stream) {
+  using namespace mpc_iris;
+  Grid g;
+  const int bad = make_grid(spectrum_kernel(), q, dp, dm, n_entries, &g);
+  if (bad) return bad;
+  packed_fractions_kernel_g8<<<kCluster * g.clusters, kThreads, kSmem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      g.q_map, g.pat_map, g.msk_map, static_cast<int>(n_entries), g.tiles,
+      static_cast<int16_t*>(out), plane, static_cast<uint32_t*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }

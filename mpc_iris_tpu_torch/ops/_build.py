@@ -46,9 +46,12 @@ _SIGNATURES = {
     "match_packed_g8_launch": (
         [_P, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_int, _P], ctypes.c_int),
     "fractions_packed_small_b_launch": (
-        [ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P,
+        [ctypes.c_int, _P, _P, _P, ctypes.c_longlong, ctypes.c_int, _P, _P,
          ctypes.c_longlong, _P],
         ctypes.c_int),
+    "fractions_packed_g8_scratch": ([ctypes.c_longlong], ctypes.c_int),
+    "fractions_packed_g8_launch": (
+        [_P, _P, _P, ctypes.c_longlong, _P, _P, ctypes.c_longlong, _P], ctypes.c_int),
     "chacha_planes_launch": (
         [_P, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_longlong, _P, _P, _P],
         ctypes.c_int),

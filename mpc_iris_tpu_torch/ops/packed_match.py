@@ -12,10 +12,12 @@ DB to memory. Per group of :func:`_launch_plan`:
   bit-plane per K-step of the bit-plane-major K order
   (``csrc/packed_tile.cuh``); the query is laid out per call by
   :func:`_query_tiles` in the order they read it;
-- the match's launch of exactly 8 queries is one group of 8
+- a launch of exactly 8 queries is one group of 8
   (``csrc/packed_match_g8.cu``): their 256 rotation rows one N = 256 tile of
-  ``packed_gemm.cu``'s warp-specialized design, the exact selection fused,
-  the query rows in that kernel's K order (:func:`_query_tiles` at qg = 8);
+  ``packed_gemm.cu``'s warp-specialized design, one tile loop for both, the
+  match's exact selection or the spectrum's per-entry rotation minimum
+  fused, the query rows in that kernel's K order (:func:`_query_tiles` at
+  qg = 8);
 - a group of one query (B = 1, and a remainder of one, as at B = 5) takes
   ``csrc/b1_packed.cu``'s binary tile loop: four AND-popcount products of
   packed bits on the binary tensor cores, no unpack, the query as the packed
@@ -96,17 +98,17 @@ def _bitplane_index(device: torch.device) -> torch.Tensor:
     return torch.as_tensor(_bitplane_perm(), device=device)
 
 
-GROUP8 = 8  # the match's one group of 8 queries (csrc/packed_match_g8.cu)
+GROUP8 = 8  # one group of 8 queries (csrc/packed_match_g8.cu)
 
 
-def _launch_plan(b: int, group8: bool = True) -> list[tuple[int, int, int]]:
-    """The kernel launches for a batch of ``b``: (first query, queries, group
-    size). Where ``group8`` (the match), a batch of exactly 8 is one group of
-    8 (N = 256 rotation rows). Otherwise groups of 4 queries (N = 128); a
-    remainder of 1 or 2 gets its own group size, one of 3 a group of 4 with a
-    zero query. A group of 1 takes a binary kernel (module docstring). Each
-    launch holds the same queries either way."""
-    if group8 and b == GROUP8:
+def _launch_plan(b: int) -> list[tuple[int, int, int]]:
+    """The kernel launches for a batch of ``b``, the match's and the
+    spectrum's: (first query, queries, group size). A batch of exactly 8 is
+    one group of 8 (N = 256 rotation rows). Otherwise groups of 4 queries
+    (N = 128); a remainder of 1 or 2 gets its own group size, one of 3 a
+    group of 4 with a zero query. A group of 1 takes a binary kernel (module
+    docstring)."""
+    if b == GROUP8:
         return [(0, b, GROUP8)]
     plan = [(0, b - b % 4, 4)] if b >= 4 else []
     r = b % 4
@@ -319,8 +321,7 @@ def fractions_packed_small_b_reference(q_enc, q_mask, db_pat, db_msk) -> torch.T
 def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
                              db_pat: torch.Tensor, db_msk: torch.Tensor) -> torch.Tensor:
     """Small-batch audit spectrum over a bit-packed DB: one kernel launch per
-    query group size of :func:`_launch_plan` without the group of 8 (a batch
-    of 8 runs as two groups of 4 in one launch).
+    query group size of :func:`_launch_plan`, the match's plan.
 
     Arguments as for :func:`match_packed_small_b`. Returns int16
     [2, B, C*c]: per (query, entry) the min-over-31-rotations exact
@@ -340,8 +341,7 @@ def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
     out = torch.empty((2, b, n_entries), dtype=torch.int16, device=q_enc.device)
     checks = []
     with torch.cuda.device(q_enc.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for q0, nq, qg in _launch_plan(b, group8=False):
+        for q0, nq, qg in _launch_plan(b):
             qe, qm = q_enc[q0:q0 + nq], q_mask[q0:q0 + nq]
             if qg == 1:
                 with annotate("iris.query_prep"):
@@ -350,11 +350,8 @@ def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
                 launch_fractions("fractions_packed_small_b", lib, q, db_pat, db_msk, n_entries,
                                  out[0, q0], b * n_entries)
             else:
-                with annotate("iris.query_prep"):
-                    qt = _query_tiles(qe, qm, qg)
-                check_launch("fractions_packed_small_b", lib.fractions_packed_small_b_launch(
-                    qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, nq,
-                    out[0, q0].data_ptr(), b * n_entries, stream))
+                _launch_int8_fractions(lib, qe, qm, db_pat, db_msk, n_entries, qg, out[0, q0],
+                                       b * n_entries)
             fractions_packed_small_b.launches += 1
     for check in checks:
         require_bit_valued("fractions_packed_small_b", check)
@@ -362,6 +359,27 @@ def fractions_packed_small_b(q_enc: torch.Tensor, q_mask: torch.Tensor,
 
 
 fractions_packed_small_b.launches = 0
+
+
+def _launch_int8_fractions(lib, q_enc, q_mask, db_pat, db_msk, n_entries: int, qg: int,
+                           out: torch.Tensor, plane: int) -> None:
+    """One launch of the int8 spectrum kernel on the current stream for the
+    queries in groups of ``qg`` (2 or 4, ``csrc/packed_fractions.cu``; the
+    last group padded by zero queries; or 8 queries as one group,
+    ``csrc/packed_match_g8.cu``, counted as ``iris.spectrum.group8_launches``),
+    the first query's n row at ``out`` and its d row ``plane`` elements
+    further."""
+    with annotate("iris.query_prep"):
+        qt = _query_tiles(q_enc, q_mask, qg)
+    scratch = None
+    if qg == GROUP8:
+        scratch = torch.empty(lib.fractions_packed_g8_scratch(n_entries),  # its exchange
+                              dtype=torch.int32, device=q_enc.device)
+        count("iris.spectrum.group8_launches")
+    check_launch("fractions_packed_small_b", lib.fractions_packed_small_b_launch(
+        qg, qt.data_ptr(), db_pat.data_ptr(), db_msk.data_ptr(), n_entries, q_enc.shape[0],
+        None if scratch is None else scratch.data_ptr(), out.data_ptr(), plane,
+        torch.cuda.current_stream().cuda_stream))
 
 
 def _canary_inputs(device, pat, msk, qpat, qmsk):
@@ -395,20 +413,23 @@ def check_match_packed_small_b(device) -> None:
 
 
 def check_fractions_packed_small_b(device) -> None:
-    """Kernel canary: both audit-spectrum kernels (B = 3, a group of 4 with a
-    zero query; B = 1, the binary kernel) equal the plain version, bit for
-    bit, on the same planted traps; the self-match at 129 and its duplicate
-    at 257 report (0, d), the all-invalid entry 7 and the padded tail (0,
-    0)."""
+    """Kernel canary: the three audit-spectrum kernels (B = 8, the group of
+    8; B = 3, a group of 4 with a zero query; B = 1, the binary kernel) equal
+    the plain version, bit for bit, on the same planted traps; the self-match
+    at 129 and its copies at 193 (the other consumer warpgroup of its
+    128-entry tile in the group of 8) and 257 report (0, d), the all-invalid
+    entry 7 and the padded tail (0, 0)."""
     rng = np.random.default_rng(0xF4AC)
-    pat, msk, qpat, qmsk = planted_packed_case(rng)  # 700 entries
+    pat, msk, qpat, qmsk = planted_packed_case(rng, b=8)  # 700 entries
+    pat[193], msk[193] = pat[129], msk[129]
     q_enc, q_mask, db_pat, db_msk = _canary_inputs(device, pat, msk, qpat, qmsk)
-    for b in (3, 1):
+    for b in (8, 3, 1):
         args = (q_enc[:b], q_mask[:b], db_pat, db_msk)
         got = fractions_packed_small_b(*args).cpu()
         want = fractions_packed_small_b_reference(*args).cpu()
-        if (not torch.equal(got, want) or got[0, 0, 129] != 0 or got[0, 0, 257] != 0
-                or got[1, :, 7].any() or got[:, :, 700:].any()):
+        self_match = got[:, 0, [129, 193, 257]]
+        if (not torch.equal(got, want) or self_match[0].any() or not self_match[1].all()
+                or got[:, :, 7].any() or got[:, :, 700:].any()):
             raise RuntimeError(f"fractions_packed_small_b kernel self-test FAILED on {device} "
                                f"at B={b}")
 

@@ -1,29 +1,44 @@
-"""Check and time kernel (b) at B = 8 as one group of eight queries
+"""Check and time kernels (b) and (c) at B = 8 as one group of eight queries
 (``csrc/packed_match_g8.cu``: N = 256 on packed_gemm's warp-specialized
-design, the exact selection fused) against the loop it replaces at B = 8,
-two groups of 4 in one launch of ``csrc/packed_match.cu``, on one CUDA card.
+design, one tile loop, the match's exact selection or the spectrum's
+per-entry rotation minimum fused) against the loops they replace at B = 8,
+two groups of 4 in one launch of ``csrc/packed_match.cu`` or
+``csrc/packed_fractions.cu``, on one CUDA card.
 
-Both are checked bit for bit: against the plain version
-(``match_packed_small_b_reference``) at 64, 700 and 20,001 entries with
-planted ties (copies of one entry in both warpgroups of a tile and a walk
-step apart, rotation ties, an all-invalid entry, a zero query), and
-against each other over every timed DB (also against the plain version over
-the first). Then CUDA-event times in turns (group of 8, groups of 4, groups
-of 4, group of 8, ...), each call with its query layout, over DBs of
-1,048,576 and 6,012,928 random packed entries (one card's share of the
-24M-entry sharded cell) made on the card; with the int8 bound, the card's
-name and power limit, and ptxas's lines for the new kernel (registers,
-spills, barriers).
+Every output is checked bit for bit: against the plain versions
+(``match_packed_small_b_reference``, ``fractions_packed_small_b_reference``)
+at 64, 700 and 20,001 entries with planted ties (copies of one entry in both
+warpgroups of a tile and a walk step apart, rotation ties, an all-invalid
+entry, a zero query), and against each other over every timed DB (also
+against the plain version over the first). Then CUDA-event times in turns
+(group of 8, groups of 4, groups of 4, group of 8, ...), each call with its
+query layout: the match over DBs of 1,048,576 and 6,012,928 random packed
+entries (one card's share of the 24M-entry sharded cell), the spectrum over
+1,048,576 and 3,014,656 (the 3M-entry DB in the engine's chunks), made on
+the card; with the int8 bound, the card's name and power limit, and
+ptxas's lines for both kernels (registers, spills, barriers).
 
-    python scripts/packed_match_g8_probe_torch.py --out g8_probe.json
+With ``--old DIR`` (an earlier commit's ``mpc_iris_tpu_torch/csrc``,
+unpacked beforehand), its ``packed_match_g8.cu`` is built alone into its own
+library and the match's group of 8, launched bare
+(``match_packed_g8_launch`` on one prepared operand), is timed in turns
+against the package's over the match's DBs (old, new, new, old, ...), the
+two bit-equal, with the old build's ptxas lines:
+
+    git archive <commit> mpc_iris_tpu_torch/csrc | tar -x -C build/parent
+    python scripts/packed_match_g8_probe_torch.py --out g8_probe.json \\
+        --old build/parent/mpc_iris_tpu_torch/csrc
     python scripts/packed_match_g8_probe_torch.py --device cpu   # rehearsal: plain versions, no times
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import hashlib
 import json
 import os
+import subprocess
 import sys
 import time
 
@@ -45,17 +60,19 @@ B = 8
 CHUNK = 16_384  # the engines' chunk
 CHECK_N = (64, 700, 20_001)
 TIMED_N = (1_048_576, 6_012_928)
+SPECTRUM_N = (1_048_576, 3_014_656)
+KERNELS = ("packed_match_kernel_g8", "packed_fractions_kernel_g8")
 
 
 def ptxas_lines(log: str) -> list[str]:
-    """ptxas's lines for packed_match_kernel_g8: its properties, spills,
+    """ptxas's lines for the group of 8's kernels: their properties, spills,
     registers and barriers, and any wgmma serialization warning."""
     lines = log.splitlines()
     keep = []
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "packed_match_kernel_g8" in line:
+        if "Compiling entry function" in line and any(k in line for k in KERNELS):
             keep += lines[i:i + 4]
-        elif "wgmma" in line and "packed_match_kernel_g8" in line:
+        elif "wgmma" in line and any(k in line for k in KERNELS):
             keep.append(line)
     return [k.strip() for k in keep]
 
@@ -107,12 +124,15 @@ def random_db(dev, n: int, seed: int):
     return (*prepare_query_planes(qpat, qmsk), pat, msk)
 
 
+def n_entries(args) -> int:
+    return args[2].shape[0] * args[2].shape[1]
+
+
 def groups_of_4(args) -> torch.Tensor:
-    """B = 8 as the loop before the group of 8 took it: one launch of
+    """B = 8's match as the loop before the group of 8 took it: one launch of
     csrc/packed_match.cu, two groups of 4."""
     out = torch.empty((3, B), dtype=torch.int32, device=args[0].device)
-    n = args[2].shape[0] * args[2].shape[1]
-    tpm._launch_int8_group(_build.library(), *args, n, 4, out, B)
+    tpm._launch_int8_group(_build.library(), *args, n_entries(args), 4, out, B)
     return out
 
 
@@ -120,25 +140,103 @@ def group_of_8(args) -> torch.Tensor:
     return tpm.match_packed_small_b(*args)
 
 
+def spectrum_groups_of_4(args) -> torch.Tensor:
+    """B = 8's spectrum as the loop before the group of 8 took it: one
+    launch of csrc/packed_fractions.cu, two groups of 4."""
+    n = n_entries(args)
+    out = torch.empty((2, B, n), dtype=torch.int16, device=args[0].device)
+    tpm._launch_int8_fractions(_build.library(), *args, n, 4, out[0, 0], B * n)
+    return out
+
+
+def spectrum_group_of_8(args) -> torch.Tensor:
+    return tpm.fractions_packed_small_b(*args)
+
+
+def build_old(csrc: str):
+    """The old tree's packed_match_g8.cu alone, built by nvcc (the package's
+    flags) into its own library; returns it and nvcc's output."""
+    h = hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
+    for f in sorted(os.listdir(csrc)):
+        h.update(f.encode())
+        with open(os.path.join(csrc, f), "rb") as fh:
+            h.update(fh.read())
+    out = _build.BUILD_DIR / f"libold_g8_{h.hexdigest()[:16]}.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    run = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
+                          os.path.join(csrc, "packed_match_g8.cu")],
+                         capture_output=True, text=True, check=True)
+    lib = ctypes.CDLL(str(out))
+    for name in ("match_packed_g8_scratch", "match_packed_g8_launch"):
+        fn, (argtypes, restype) = getattr(lib, name), _build._SIGNATURES[name]
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib, run.stdout + run.stderr
+
+
+def bare_match(lib, args, qt: torch.Tensor):
+    """The match's group of 8 from ``lib``, launched bare on the prepared
+    operand ``qt`` (its fold included); returns the call and its output."""
+    n = n_entries(args)
+    scratch = torch.empty(lib.match_packed_g8_scratch(n), dtype=torch.int32,
+                          device=qt.device)
+    out = torch.empty((3, B), dtype=torch.int32, device=qt.device)
+
+    def run():
+        _build.check_launch("match_packed_g8_launch", lib.match_packed_g8_launch(
+            qt.data_ptr(), args[2].data_ptr(), args[3].data_ptr(), n, scratch.data_ptr(),
+            out.data_ptr(), B, torch.cuda.current_stream().cuda_stream))
+        return out
+    return run
+
+
+def in_turns(calls: dict, rounds: int, reps: int) -> dict:
+    """Each call's CUDA-event times, ``rounds`` rounds in turns: the first
+    call first in even rounds, last in odd ones."""
+    names = list(calls)
+    times = {name: [] for name in names}
+    for rnd in range(rounds):
+        for name in (names if rnd % 2 == 0 else names[::-1]):
+            times[name].append(cuda_ms(calls[name], reps))
+    return times
+
+
+def report_times(kind: str, n: int, times: dict, reps: int, rounds: int, card: str) -> None:
+    bnd = bound_ms(n)
+    print(f"{kind} N={n} B={B}: bound {bnd:.4f} ms (int8 operations) [{card}]")
+    for name, ms in times.items():
+        print(f"  {name}: {', '.join(f'{x:.4f}' for x in ms)} ms (mean of {reps}, {rounds} "
+              f"rounds in turns); {bnd / min(ms):.1%} of the bound")
+
+
+def rehearse(dev) -> int:
+    """The plain versions on the CPU: the operand layout, the plan and the
+    planted cases' winners and self-match pairs."""
+    for n in CHECK_N[:2]:
+        case = planted(dev, n, n)
+        got = tpm.match_packed_small_b(*case)
+        nd = tpm.fractions_packed_small_b(*case)
+        assert tpm._launch_plan(B) == [(0, B, tpm.GROUP8)]
+        assert tpm._query_tiles(case[0], case[1], tpm.GROUP8).shape == (2 * 32 * B, BITS)
+        e = int(got[2, 0])
+        print(f"rehearsal N={n}: winners {got[2].tolist()}; spectrum of query 0 at {e}: "
+              f"({int(nd[0, 0, e])}, {int(nd[1, 0, e])})")
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--entries", type=int, nargs="*", default=list(TIMED_N))
+    ap.add_argument("--spectrum-entries", type=int, nargs="*", default=list(SPECTRUM_N))
+    ap.add_argument("--old", default=None, help="an earlier commit's mpc_iris_tpu_torch/csrc")
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     dev = torch.device(args.device)
-    report = {"checks": [], "times": []}
     if dev.type == "cpu":
-        # the plain versions on the CPU: the operand layout and the plan only
-        for n in CHECK_N[:2]:
-            case = planted(dev, n, n)
-            got = tpm.match_packed_small_b(*case)
-            assert tpm._launch_plan(B) == [(0, B, tpm.GROUP8)]
-            assert tpm._query_tiles(case[0], case[1], tpm.GROUP8).shape == (2 * 32 * B, BITS)
-            print(f"rehearsal N={n}: winners {got[2].tolist()}")
-        return 0
+        return rehearse(dev)
+    report = {"checks": [], "times": [], "spectrum_times": [], "old_vs_new": []}
 
     card = card_line()
     report["card"] = card
@@ -148,47 +246,78 @@ def main() -> int:
     print(f"build {b.seconds:.1f} s")
     for line in report["ptxas"]:
         print("ptxas:", line)
+    old = None
+    if args.old:
+        old, log = build_old(args.old)
+        report["old_ptxas"] = ptxas_lines(log)
+        for line in report["old_ptxas"]:
+            print("old ptxas:", line)
 
     ok = True
     for n in CHECK_N:
         case = planted(dev, n, n)
-        want = tpm.match_packed_small_b_reference(*case)
-        new, old = group_of_8(case), groups_of_4(case)
-        torch.cuda.synchronize()
-        same = torch.equal(new, want) and torch.equal(old, want)
-        ok &= same
-        report["checks"].append({"entries": n, "equal": same, "winners": new.tolist()})
-        print(f"check N={n}: group of 8 {'==' if torch.equal(new, want) else '!='} plain, "
-              f"groups of 4 {'==' if torch.equal(old, want) else '!='} plain; "
-              f"query 0 -> {int(new[2, 0])}")
+        row = {"entries": n}
+        for kind, new_fn, old_fn, plain in (
+                ("match", group_of_8, groups_of_4, tpm.match_packed_small_b_reference),
+                ("spectrum", spectrum_group_of_8, spectrum_groups_of_4,
+                 tpm.fractions_packed_small_b_reference)):
+            want = plain(*case)
+            new, four = new_fn(case), old_fn(case)
+            torch.cuda.synchronize()
+            same = torch.equal(new, want) and torch.equal(four, want)
+            ok &= same
+            row[kind] = same
+            print(f"check {kind} N={n}: group of 8 {'==' if torch.equal(new, want) else '!='} "
+                  f"plain, groups of 4 {'==' if torch.equal(four, want) else '!='} plain")
+        report["checks"].append(row)
 
     for i, n in enumerate(args.entries):
         t0 = time.perf_counter()
         case = random_db(dev, n, 1000 + i)
         torch.cuda.synchronize()
         made = time.perf_counter() - t0
-        new, old = group_of_8(case), groups_of_4(case)
-        same = torch.equal(new, old)
+        new, four = group_of_8(case), groups_of_4(case)
+        same = torch.equal(new, four)
         if i == 0:
             same &= torch.equal(new, tpm.match_packed_small_b_reference(*case))
+        calls = {"group of 8": lambda: group_of_8(case), "groups of 4": lambda: groups_of_4(case)}
+        times = in_turns(calls, args.rounds, args.reps)
+        report["times"].append({"entries": n, "bound_ms": bound_ms(n), "equal": same,
+                                "db_made_s": made, "ms": times, "card": card})
+        print(f"match results {'equal' if same else 'DIFFERENT'}")
+        report_times("match", n, times, args.reps, args.rounds, card)
+        if old is not None:
+            qt = tpm._query_tiles(case[0], case[1], tpm.GROUP8)
+            calls = {"parent": bare_match(old, case, qt),
+                     "change": bare_match(_build.library(), case, qt)}
+            same_old = torch.equal(calls["parent"](), calls["change"]())
+            same &= same_old
+            times = in_turns(calls, 2 * args.rounds, args.reps)
+            report["old_vs_new"].append({"entries": n, "equal": same_old, "ms": times,
+                                         "card": card})
+            print(f"match group of 8, parent's build against the change's: results "
+                  f"{'equal' if same_old else 'DIFFERENT'}")
+            report_times("match (bare launch)", n, times, args.reps, 2 * args.rounds, card)
         ok &= same
-        times = {"group of 8": [], "groups of 4": []}
-        for rnd in range(args.rounds):
-            order = ("group of 8", "groups of 4") if rnd % 2 == 0 else ("groups of 4", "group of 8")
-            for name in order:
-                fn = group_of_8 if name == "group of 8" else groups_of_4
-                times[name].append(cuda_ms(lambda: fn(case), args.reps))
-        bnd = bound_ms(n)
-        row = {"entries": n, "bound_ms": bnd, "equal": same, "db_made_s": made,
-               "ms": times, "card": card}
-        report["times"].append(row)
-        print(f"N={n} B={B}: results {'equal' if same else 'DIFFERENT'}; bound {bnd:.4f} ms "
-              f"(int8 operations) [{card}]")
-        for name, ms in times.items():
-            best = min(ms)
-            print(f"  {name}: {', '.join(f'{x:.4f}' for x in ms)} ms (mean of {args.reps}, "
-                  f"{args.rounds} rounds in turns); {bnd / best:.1%} of the bound")
-        del case
+        del case, calls
+        torch.cuda.empty_cache()
+
+    for i, n in enumerate(args.spectrum_entries):
+        case = random_db(dev, n, 2000 + i)
+        new, four = spectrum_group_of_8(case), spectrum_groups_of_4(case)
+        same = torch.equal(new, four)
+        if i == 0:
+            same &= torch.equal(new, tpm.fractions_packed_small_b_reference(*case))
+        ok &= same
+        del new, four
+        calls = {"group of 8": lambda: spectrum_group_of_8(case),
+                 "groups of 4": lambda: spectrum_groups_of_4(case)}
+        times = in_turns(calls, args.rounds, args.reps)
+        report["spectrum_times"].append({"entries": n, "bound_ms": bound_ms(n), "equal": same,
+                                         "ms": times, "card": card})
+        print(f"spectrum results {'equal' if same else 'DIFFERENT'}")
+        report_times("spectrum", n, times, args.reps, args.rounds, card)
+        del case, calls
         torch.cuda.empty_cache()
 
     report["ok"] = ok

@@ -170,6 +170,71 @@ def test_match_group8_kernel(cuda, n):
         assert int(got[1, 2]) == 0 and int(got[2, 2]) == 0  # the zero query
 
 
+@pytest.mark.parametrize("n", GROUP8_N)
+def test_fractions_group8_kernel(cuda, n):
+    """The spectrum at B = 8 launches the group of 8 once, counted as
+    ``iris.spectrum.group8_launches`` under a capture, and equals the plain
+    version and the groups-of-4 loop on the card, bit for bit, as (n, d)
+    pairs: the self-match and its copies (0, d), rotation ties as the
+    earliest rotation's pair, the all-invalid entry, the zero query and the
+    padded tail (0, 0)."""
+    args, want0 = _group8_case(cuda, n)
+    name = "iris.spectrum.group8_launches"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        before = tpm.fractions_packed_small_b.launches
+        counted = profiling.snapshot()["counters"].get(name, 0)
+        got = tpm.fractions_packed_small_b(*args)
+        torch.cuda.synchronize()
+        assert tpm.fractions_packed_small_b.launches == before + 1
+        assert profiling.snapshot()["counters"].get(name, 0) - counted == 1
+    want = tpm.fractions_packed_small_b_reference(*args)
+    assert got.dtype == torch.int16 and torch.equal(got, want)
+    fours = torch.empty_like(got)
+    n_entries = args[2].shape[0] * args[2].shape[1]
+    tpm._launch_int8_fractions(_build.library(), *args, n_entries, 4, fours[0, 0],
+                               8 * n_entries)
+    assert torch.equal(fours, want)
+    copies = [want0, 40] if n < 700 else [129, 193, 257]
+    assert not got[0, 0, copies].any() and got[1, 0, copies].all()
+    assert not got[:, :, n:].any()
+    if n >= 700:
+        assert not got[:, :, 7].any() and not got[:, 2].any()
+
+
+def test_find_under_b8_runs_the_group_of_8(cuda):
+    """``PlaintextEngine(storage="packed").find_under`` at B = 8 launches the
+    group of 8 once a request (counted under a capture) and gives the lists
+    of the engine's plain versions on the CPU: near-copies of three queries
+    planted in other chunks, a threshold that takes them and some random
+    entries, each list's ties to the lowest index."""
+    rng = np.random.default_rng(24)
+    n = 5000
+    pat = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    msk = rng.integers(0, 256, (n, 1600), dtype=np.uint8)
+    q = rng.integers(0, n, 8)
+    q[:3] = [17, 1200, 4999]
+    for src, dst in ((17, 2500), (17, 3333), (1200, 64), (4999, 4000)):
+        pat[dst], msk[dst] = pat[src], msk[src]
+        pat[dst, :4] ^= 0xFF  # a near-copy: 32 pattern bits flipped
+    card = PlaintextEngine(pat, msk, device=cuda, chunk=1024, storage="packed")
+    host = PlaintextEngine(pat, msk, device="cpu", chunk=1024, storage="packed")
+    nd = host.min_fractions(pat[q], msk[q])
+    t = float(np.quantile(nd[0] / np.maximum(nd[1], 1), 0.002))
+
+    def rows(res):
+        return [[(m.index, m.distance, m.numerator, m.denominator) for m in row] for row in res]
+
+    name = "iris.spectrum.group8_launches"
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        counted = profiling.snapshot()["counters"].get(name, 0)
+        got = rows(card.find_under(pat[q], msk[q], t))
+        torch.cuda.synchronize()
+        assert profiling.snapshot()["counters"].get(name, 0) - counted == 1
+    assert got == rows(host.find_under(pat[q], msk[q], t))
+    assert [m[0] for m in got[0][:3]] == [17, 2500, 3333]
+    assert {m[0] for m in got[1]} >= {64, 1200} and {m[0] for m in got[2]} >= {4000, 4999}
+
+
 def test_sharded_match_b8_runs_group8_on_every_shard(cuda):
     """ShardedPlaintextEngine on four shards of one card ([cuda] x 4) at
     B = 8: each shard launches the group of 8 once (4 counted under a

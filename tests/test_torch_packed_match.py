@@ -2,9 +2,11 @@
 plain version on the CPU) against the JAX kernel match_packed_small_b in
 interpret mode and the JAX packed scan. Exact: integers equal."""
 
+import contextlib
 import os
 import subprocess
 import sys
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -182,6 +184,38 @@ def test_group_of_eight_traps_equal_jax(rng):
     assert got[1, 2] == 0 and got[2, 2] == 0
 
 
+def test_group_of_eight_spectrum_equals_jax(rng):
+    """B = 8's audit spectrum as the group of 8 computes it (its operand's
+    arithmetic, :func:`_kernel_arithmetic` at qg = 8, then each entry's
+    exact rotation minimum) equals ``fractions_packed_small_b_reference``
+    and the JAX kernel in interpret mode, as (n, d) pairs: the traps of
+    :func:`test_group_of_eight_traps_equal_jax` (the self-match at 129, 193
+    and 257, the sparse masks' rotation ties, entry 7, the zero query 2,
+    1,000 entries and a zero-padded tail to 1,024)."""
+    pat, msk, qpat, qmsk = tpm.planted_packed_case(rng, n=1000, b=8)
+    pat[193], msk[193] = pat[129], msk[129]
+    pat_c, _ = teng._pad_chunks(pat, 512)
+    msk_c, _ = teng._pad_chunks(msk, 512)
+    q_enc, q_mask = teng.prepare_query_planes(_t(qpat), _t(qmsk))
+    num, den = _kernel_arithmetic(q_enc, q_mask, _t(pat_c), _t(msk_c), tpm.GROUP8)
+    n_r, d_r, _ = tdec.fraction_min_rotations(_t(num), _t(den), axis=1)
+    got = torch.stack([n_r, d_r]).numpy()
+    want = tpm.fractions_packed_small_b_reference(q_enc, q_mask, _t(pat_c), _t(msk_c)).numpy()
+    jk = np.asarray(jpm.fractions_packed_small_b(*jeng.prepare_query_planes(qpat, qmsk),
+                                                 jnp.asarray(pat_c), jnp.asarray(msk_c),
+                                                 interpret=True))
+    assert got.shape == (2, 8, 1024)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got.astype(np.uint16), jk)
+    assert not got[0, 0, [129, 193, 257]].any() and got[1, 0, [129, 193, 257]].all()
+    assert not got[:, :, 7].any() and not got[:, :, 1000:].any() and not got[:, 2].any()
+    # the sparse masks' rotation ties: the least fraction as another pair at
+    # a later rotation, which the earliest rotation's pair beats
+    n_min, d_min = got[:, :, None].astype(np.int64)
+    nums, dens = num[:, :31].astype(np.int64), den[:, :31].astype(np.int64)
+    assert ((nums * d_min == n_min * dens) & (dens > 0) & (dens != d_min)).any()
+
+
 @pytest.mark.parametrize("b,plan", [
     (1, [(0, 1, 1)]), (2, [(0, 2, 2)]), (3, [(0, 3, 4)]), (4, [(0, 4, 4)]),
     (7, [(0, 4, 4), (4, 3, 4)]), (8, [(0, 8, 8)]), (13, [(0, 12, 4), (12, 1, 1)]),
@@ -190,16 +224,61 @@ def test_launch_plan_covers_the_batch(b, plan):
     assert tpm._launch_plan(b) == plan
 
 
+class _Launches:
+    """Stands in for the kernel library, ``launch_select`` and
+    ``launch_fractions``: records each launch as (kernel family, group size,
+    queries)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def match_packed_small_b_launch(self, qg, qt, dp, dm, n, nq, part, out, stride, stream):
+        self.calls.append(("b", qg, nq))
+        return 0
+
+    def fractions_packed_small_b_launch(self, qg, qt, dp, dm, n, nq, scratch, out, plane,
+                                        stream):
+        self.calls.append(("c", qg, nq))
+        return 0
+
+    def match_packed_g8_scratch(self, n):
+        return 1
+
+    def fractions_packed_g8_scratch(self, n):
+        return 1
+
+    def packed_tile_entries(self, qg):
+        return 128
+
+    def one(self, family):
+        return lambda *args: self.calls.append((family, 1, 1))
+
+
 @pytest.mark.parametrize("b", [1, 2, 3, 5, 7, 8, 13])
-def test_spectrum_plan_keeps_groups_of_four(b):
-    """Kernel (c) has no group of 8: at B = 8 it keeps one launch of two
-    groups of 4, and every other batch the match's plan; each launch holds
-    the match's queries."""
-    plan = tpm._launch_plan(b, group8=False)
-    assert all(qg in (1, 2, 4) for *_, qg in plan)
-    assert [q[:2] for q in plan] == [q[:2] for q in tpm._launch_plan(b)]
-    if b != 8:
-        assert plan == tpm._launch_plan(b)
+def test_spectrum_and_match_take_one_plan(rng, monkeypatch, b):
+    """Both dispatchers walk ``_launch_plan``: the spectrum (c) makes the
+    match's (b) launches, group for group (at B = 8 one group of 8), each
+    launch holding the same queries; recorded on the CPU in place of the
+    kernel library."""
+    fake = _Launches()
+    pat, msk = _world(rng, 64)
+    q_enc, q_mask = teng.prepare_query_planes(_t(pat[rng.integers(0, 64, b)]),
+                                              _t(msk[rng.integers(0, 64, b)]))
+    db_pat, db_msk = (_t(x).reshape(1, 64, BITS_BYTES) for x in (pat, msk))
+    monkeypatch.setattr(tpm, "_launch_args", lambda name, *args: (fake, 64))
+    monkeypatch.setattr(tpm, "launch_select", fake.one("b"))
+    monkeypatch.setattr(tpm, "launch_fractions", fake.one("c"))
+    monkeypatch.setattr(tpm, "start_query_check", lambda qe, qm: None)
+    monkeypatch.setattr(tpm, "require_bit_valued", lambda name, check: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    tpm.match_packed_small_b(q_enc, q_mask, db_pat, db_msk)
+    tpm.fractions_packed_small_b(q_enc, q_mask, db_pat, db_msk)
+    plan = [(qg, nq) for _, nq, qg in tpm._launch_plan(b)]
+    assert [c[1:] for c in fake.calls if c[0] == "b"] == plan
+    assert [c[1:] for c in fake.calls if c[0] == "c"] == plan
+    assert (plan == [(tpm.GROUP8, 8)]) == (b == 8)
 
 
 def test_small_b_ok_policy():
@@ -229,11 +308,14 @@ def test_cpu_tensors_never_launch(rng):
 
 def test_group8_probe_rehearses_on_the_cpu():
     """``scripts/packed_match_g8_probe_torch.py --device cpu``: the plan and
-    the operand's shape at B = 8, and the plain version's winners on the
-    probe's planted cases (query 0 the self-match at 5, then at 129)."""
+    the operand's shape at B = 8, and the plain versions' winners and
+    spectrum on the probe's planted cases (query 0 the self-match at 5, then
+    at 129: n = 0 there)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "scripts/packed_match_g8_probe_torch.py", "--device",
                           "cpu"], cwd=repo, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "rehearsal N=64: winners [5," in out.stdout
     assert "rehearsal N=700: winners [129," in out.stdout
+    assert "spectrum of query 0 at 5: (0, " in out.stdout
+    assert "spectrum of query 0 at 129: (0, " in out.stdout
